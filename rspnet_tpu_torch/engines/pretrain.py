@@ -1,0 +1,240 @@
+"""MoCo + RSP pretraining engine on one card (port of
+rspnet_tpu/engines/pretrain.py; reference: pretrain.py:33-260).
+
+The hot loop:
+
+  host loader (decode [+ geometry], uint8)
+    -> device augment (ops.augment.augment_batch: crop_resize + kernel K3)
+    -> train step (moco.step.train_step: S3D-G through kernels K1/K2)
+
+Run-dir artifacts: checkpoint.pth.tar (epoch / arch / model / best_loss /
+optimizer / scheduler, the JAX engine's top-level keys) and the
+model_best.pth.tar hard link. Float32 throughout; TF32 is off for both
+matmuls and cuDNN convolutions, set explicitly and logged.
+
+Not ported yet (each raises NotImplementedError): more than one card,
+``parallel:`` 2-D layouts, more than one ``moco.diff_speed``,
+``moco.packed_frames``, ``cache_device``, ``moco.aug_plus`` and
+``--validate``.
+"""
+from __future__ import annotations
+
+import logging
+import time
+
+import numpy as np
+import torch
+
+from ..config import ConfigTree
+from ..data.pipeline import build_loader, prefetch_iterator
+from ..framework import CheckpointManager, MeterGroup, load_state
+from ..framework.environment import scale_learning_rate
+from ..framework.lr_schedule import build_optimizer, build_scheduler, set_opt_lr
+from ..moco import METRIC_KEYS, build_moco_model, init_moco_state, train_step
+from ..ops.augment import augment_batch, sample_train_params
+from ..utils.moco import replace_moco_k_in_config
+from .normalization import dataset_normalization
+
+logger = logging.getLogger(__name__)
+
+
+def resolve_device(name: str) -> torch.device:
+    """``cuda`` or ``cpu``; ``cuda`` without a card raises (never a quiet
+    fall back to the CPU)."""
+    if name == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("--device cuda: no CUDA device is available "
+                               "(pass --device cpu to run on the CPU)")
+        return torch.device("cuda", torch.cuda.current_device())
+    if name == "cpu":
+        return torch.device("cpu")
+    raise ValueError(f"unknown device {name!r}")
+
+
+def _unsupported(cfg: ConfigTree, args) -> None:
+    def nope(what):
+        raise NotImplementedError(f"{what} is not ported yet (see ROADMAP.md)")
+
+    if int(getattr(args, "world_size", 1)) > 1:
+        nope("training on more than one card (--ws > 1)")
+    if cfg.get("parallel", None) is not None:
+        nope("the 2-D `parallel:` layout")
+    if len(cfg.get_list("moco.diff_speed")) > 1:
+        nope("exact multi-speed training (len(moco.diff_speed) > 1)")
+    if cfg.get_bool("moco.packed_frames", False):
+        nope("moco.packed_frames")
+    if cfg.get("cache_device", False) not in (False, None):
+        nope("cache_device")
+    if cfg.get_bool("moco.aug_plus", False):
+        nope("moco.aug_plus (gaussian blur)")
+
+
+class PretrainEngine:
+    def __init__(self, args, cfg: ConfigTree):
+        self.args = args
+        self.cfg = cfg
+        self.debug = bool(getattr(args, "debug", False))
+        _unsupported(cfg, args)
+        self.device = resolve_device(getattr(args, "device", "cuda"))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        logger.info("Device %s; allow_tf32: matmul=%s cudnn=%s", self.device,
+                    torch.backends.cuda.matmul.allow_tf32,
+                    torch.backends.cudnn.allow_tf32)
+
+        self.batch_size = cfg.get_int("batch_size")
+        replace_moco_k_in_config(cfg, self.batch_size)
+        seed = cfg.get_int("seed", 0)
+        torch.manual_seed(seed)
+        model, self.moco_cfg = build_moco_model(cfg)
+        model = model.to(self.device, memory_format=torch.channels_last_3d)
+        self.arch = cfg.get_string("model.arch")
+
+        lr = cfg.get_float("optimizer.lr")
+        if not getattr(args, "no_scale_lr", False):
+            lr = scale_learning_rate(lr, 1, self.batch_size)
+            logger.info("Scaled lr: %f", lr)
+        self.num_epochs = cfg.get_int("num_epochs")
+        self.scheduler = build_scheduler(
+            cfg.get_string("optimizer.schedule", "cosine"), lr,
+            num_epochs=self.num_epochs,
+            milestones=cfg.get_list("optimizer.milestones", []),
+            patience=cfg.get_int("optimizer.patience", 10),
+            # reference pretrain cosine floors at lr/1000 (pretrain.py:75-79)
+            eta_min=lr / 1000.0)
+        optimizer = build_optimizer(cfg.get_config("optimizer"),
+                                    model.parameters(), lr)
+
+        self.train_loader = build_loader(cfg, "train", vid=True,
+                                         debug=self.debug)
+        self.size = cfg.get_int("spatial_transforms.size")
+
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed + 1)
+        self.state = init_moco_state(model, self.moco_cfg, optimizer,
+                                     self.generator)
+
+        self.checkpoint_manager = CheckpointManager(
+            args.experiment_dir,
+            keep_interval=cfg.get_int("checkpoint_interval", None))
+        self.meters = MeterGroup(METRIC_KEYS)
+        self.log_interval = cfg.get_int("log_interval", 10)
+        self.best_loss = float("inf")
+        self.current_epoch = 1
+        self.rng = np.random.default_rng(seed)
+        # dataset.mean/std; debug disables normalization in the VID
+        # pipeline (reference :152-162)
+        self.normalize = dataset_normalization(cfg, vid_debug=self.debug)
+        # per-step host-clock times (ms), each ended by a device sync
+        self.step_times = []
+
+    # -- device-side augmentation of a uint8 batch ----------------------------
+    # Host-geometry loaders pre-crop+resize to the network size (identity
+    # boxes); device-geometry loaders ship decode-res windows and the crop
+    # box is sampled here with the VID crop_area (0.4, 1.0)
+    # (rspnet_tpu/engines/pretrain.py:188-214).
+    def _augment_clip(self, clip_u8: np.ndarray) -> torch.Tensor:
+        B, _, H, W, _ = clip_u8.shape
+        dev_geom = getattr(self.train_loader.cfg, "device_geometry", False)
+        crop_area = self.train_loader.cfg.crop_area if dev_geom else (1.0, 1.0)
+        p = sample_train_params(
+            self.rng, B, [(H, W)], crop_area=crop_area, h_flip=0.5,
+            gray_p=0.2, jitter=(0.4, 0.4, 0.4, 0.4))
+        if not dev_geom:
+            # crop/resize already happened on the host: identity boxes
+            p.boxes[:] = [0, 0, H, W]
+        mean, std = self.normalize
+        batch = torch.from_numpy(clip_u8).to(self.device)
+        return augment_batch(
+            batch, p, size=(self.size, self.size), mean=mean, std=std,
+            gray_before_jitter=True, use_blur=False,
+            identity_geometry=not dev_geom and (H, W) == (self.size,
+                                                          self.size))
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # -- epochs ---------------------------------------------------------------
+    def train_epoch(self, epoch: int) -> None:
+        self.meters.reset()
+        self.train_loader.set_epoch(epoch)
+        n_batches = len(self.train_loader)
+        t_epoch = time.perf_counter()
+        samples = 0
+        rows = []
+        for i, batch in enumerate(prefetch_iterator(iter(self.train_loader))):
+            t0 = time.perf_counter()
+            clip_q = self._augment_clip(batch["clips"][0])
+            clip_k = self._augment_clip(batch["clips"][1])
+            metrics = train_step(self.state, clip_q, clip_k, self.moco_cfg,
+                                 generator=self.generator)
+            rows.append(torch.stack([metrics[k] for k in METRIC_KEYS]))
+            self._sync()
+            self.step_times.append((time.perf_counter() - t0) * 1000.0)
+            samples += batch["labels"].shape[0]
+            if i % self.log_interval == 0:
+                vals = rows[-1].tolist()
+                logger.info(
+                    "Epoch %d [%d/%d] %s lr=%.5f step=%.1fms", epoch, i,
+                    n_batches, "\t".join(f"{k}={v:.4f}" for k, v in
+                                         zip(METRIC_KEYS, vals)),
+                    self.scheduler.lr, self.step_times[-1])
+            if self.debug and i >= 2:
+                break
+        for row in torch.stack(rows).cpu().tolist():
+            self.meters.update(dict(zip(METRIC_KEYS, row)))
+        dt = time.perf_counter() - t_epoch
+        logger.info("Epoch %d done in %.1fs (%.1f clips/s)", epoch, dt,
+                    samples / max(dt, 1e-9))
+
+    def run(self) -> None:
+        num_epochs = 1 if self.debug else self.num_epochs
+        for epoch in range(self.current_epoch, num_epochs + 1):
+            self.current_epoch = epoch
+            self.train_epoch(epoch)
+            lr = self.scheduler.step(self.meters["loss"].avg)
+            set_opt_lr(self.state.optimizer, lr)
+            loss_avg = self.meters["loss"].avg
+            is_best = loss_avg < self.best_loss
+            self.best_loss = min(self.best_loss, loss_avg)
+            self.save_checkpoint(epoch, is_best)
+
+    # -- checkpointing --------------------------------------------------------
+    def save_checkpoint(self, epoch: int, is_best: bool) -> None:
+        s = self.state
+        state = {
+            "epoch": epoch,
+            "arch": self.arch,
+            "model": {
+                "model_q": s.model_q.state_dict(),
+                "model_k": s.model_k.state_dict(),
+                "queue": s.queue,
+                "queue_ptr": s.queue_ptr,
+                "step": s.step,
+            },
+            "best_loss": self.best_loss,
+            "optimizer": s.optimizer.state_dict(),
+            "scheduler": self.scheduler.state_dict(),
+        }
+        self.checkpoint_manager.save(state, is_best, epoch)
+
+    def load_checkpoint(self, path, model_only: bool = False) -> None:
+        ckpt = load_state(path)
+        if ckpt.get("arch") != self.arch:
+            raise ValueError(
+                f"Checkpoint arch {ckpt.get('arch')!r} != {self.arch!r}")
+        m = ckpt["model"]
+        s = self.state
+        s.model_q.load_state_dict(m["model_q"])
+        s.model_k.load_state_dict(m["model_k"])
+        s.queue.copy_(m["queue"])
+        s.queue_ptr = int(m["queue_ptr"])
+        s.step = int(m.get("step", 0))
+        if not model_only:
+            s.optimizer.load_state_dict(ckpt["optimizer"])
+            self.scheduler.load_state_dict(ckpt["scheduler"])
+            self.current_epoch = int(ckpt["epoch"]) + 1
+            self.best_loss = float(ckpt.get("best_loss", float("inf")))
+        logger.info("Loaded checkpoint from %s (epoch %s)", path,
+                    ckpt.get("epoch"))

@@ -1,0 +1,206 @@
+"""MoCo + relative-speed pretraining step on one device (port of the 1-D,
+``axis_name=None`` path of rspnet_tpu/moco/step_core.py and builder.py).
+
+One step, in the JAX package's order (step_core.py:313-378):
+
+  EMA of the key encoder -> dual-speed temporal gather -> ONE fused 2B
+  no-grad key pass -> query forward + A-VID InfoNCE + margin ranking ->
+  backward -> SGD -> ring enqueue of the negative keys -> metrics
+
+The fused key pass computes the key encoder's BN statistics over the
+concatenated 2B batch (real and negative keys together), as the JAX
+package does; the reference ran two B-batch passes. Randomness: the
+permutation that picks the fast half and the speed row are drawn from a
+``torch.Generator`` unless the caller passes them in (the parity tests feed
+the JAX step's draws).
+"""
+from __future__ import annotations
+
+import copy
+from dataclasses import dataclass
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..framework.metrics import accuracy
+from .wrapper import MultiTaskWrapper
+
+METRIC_KEYS = ["loss", "loss_A", "loss_M", "acc1_A", "acc5_A",
+               "acc1_A_n", "acc5_A_n", "acc1_M"]
+
+
+@dataclass(frozen=True)
+class MoCoConfig:
+    dim: int = 128
+    k: int = 16384
+    m: float = 0.999
+    t: float = 0.07
+    diff_speed: Tuple[int, ...] = (2,)
+    fc_type: str = "linear"
+    loss_lambda_a: float = 1.0
+    loss_lambda_m: float = 1.0
+    margin: float = 2.0          # reference: pretrain.py:49-53
+    alpha: float = 0.5           # batch split fraction (reference :334)
+
+
+@dataclass
+class MoCoState:
+    """Training state; the tensors live on the training device."""
+    model_q: MultiTaskWrapper
+    model_k: MultiTaskWrapper
+    queue: torch.Tensor          # [dim, K], L2-normalized columns
+    queue_ptr: int
+    optimizer: torch.optim.Optimizer
+    step: int = 0
+
+
+def init_moco_state(model: MultiTaskWrapper, cfg: MoCoConfig,
+                    optimizer: torch.optim.Optimizer,
+                    generator: torch.Generator) -> MoCoState:
+    """Key encoder = copy of the query encoder; random unit-column queue."""
+    model_k = copy.deepcopy(model)
+    for p in model_k.parameters():
+        p.requires_grad_(False)
+    dev = next(model.parameters()).device
+    queue = torch.randn((cfg.dim, cfg.k), generator=generator,
+                        device=generator.device).to(dev)
+    queue = queue / torch.linalg.vector_norm(queue, dim=0, keepdim=True)
+    return MoCoState(model, model_k, queue, 0, optimizer)
+
+
+@torch.no_grad()
+def momentum_update(model_q: nn.Module, model_k: nn.Module, m: float) -> None:
+    """EMA of the key encoder's parameters (not its BN buffers)
+    (reference :337-343)."""
+    for pk, pq in zip(model_k.parameters(), model_q.parameters()):
+        pk.mul_(m).add_(pq * (1.0 - m))
+
+
+def real_clip_len(T: int, diff_speed: Sequence[int]) -> int:
+    if not diff_speed:
+        raise ValueError("moco.diff_speed must be non-empty")
+    return T // max(diff_speed)
+
+
+def diff_speed_gather(im_q: torch.Tensor, im_k: torch.Tensor,
+                      cfg: MoCoConfig, *, perm: Optional[torch.Tensor] = None,
+                      speed_index: Optional[int] = None,
+                      generator: Optional[torch.Generator] = None):
+    """Dual-speed subsampling (reference _diff_speed :421-447).
+
+    im_q, im_k: [B, T, H, W, C]. Returns (q_real, k_real, k_negative), each
+    [B, T // max(diff_speed), H, W, C]: the samples ``perm[B*alpha:]`` play
+    at the fast speed, the rest at normal speed, and the negative key plays
+    at the opposite speed of its query.
+    """
+    B, T = im_q.shape[:2]
+    dev = im_q.device
+    t_real = real_clip_len(T, cfg.diff_speed)
+    if perm is None:
+        perm = torch.randperm(B, generator=generator,
+                              device=generator.device)
+    if speed_index is None:
+        speed_index = int(torch.randint(len(cfg.diff_speed), (),
+                                        generator=generator,
+                                        device=generator.device))
+    perm = torch.as_tensor(perm, device=dev, dtype=torch.long)
+    is_fast = torch.zeros(B, dtype=torch.bool, device=dev)
+    is_fast[perm[int(B * cfg.alpha):]] = True
+    speed1 = torch.arange(t_real, device=dev)
+    speed2 = torch.arange(0, T, cfg.diff_speed[speed_index],
+                          device=dev)[:t_real]
+    idx_same = torch.where(is_fast[:, None], speed2[None], speed1[None])
+    idx_opp = torch.where(is_fast[:, None], speed1[None], speed2[None])
+    rows = torch.arange(B, device=dev)[:, None]
+    return im_q[rows, idx_same], im_k[rows, idx_same], im_k[rows, idx_opp]
+
+
+@torch.no_grad()
+def key_pass(model_k: MultiTaskWrapper, k_real: torch.Tensor,
+             k_neg: torch.Tensor):
+    """ONE fused 2B forward of the key encoder in train mode (BN statistics
+    over both key batches together, rspnet_tpu step_core.py:281-293)."""
+    b = k_real.shape[0]
+    k_a, k_m = model_k(torch.cat([k_real, k_neg], dim=0))
+    return k_a[:b], k_m[:b], k_a[b:], k_m[b:]
+
+
+def avid_loss_dense(q_a, k_a, k_neg_a, queue, cfg: MoCoConfig):
+    """A-VID InfoNCE against the queue for both positives (builder :77)."""
+    l_pos_a1 = torch.sum(q_a * k_a, dim=1, keepdim=True)
+    l_pos_a2 = torch.sum(q_a * k_neg_a, dim=1, keepdim=True)
+    l_neg_a = q_a @ queue.detach()
+    logits1 = torch.cat([l_pos_a1, l_neg_a], dim=1) / cfg.t
+    logits2 = torch.cat([l_pos_a2, l_neg_a], dim=1) / cfg.t
+    labels = torch.zeros(q_a.shape[0], dtype=torch.long, device=q_a.device)
+    loss = F.cross_entropy(logits1, labels) + F.cross_entropy(logits2, labels)
+    return loss, (logits1, logits2)
+
+
+@torch.no_grad()
+def queue_update(queue: torch.Tensor, queue_ptr: int,
+                 keys: torch.Tensor) -> int:
+    """Ring enqueue of keys [B, dim] in place; returns the new pointer."""
+    batch = keys.shape[0]
+    if queue.shape[1] % batch != 0:
+        # a partial slice would overwrite live columns while the pointer
+        # advances modulo K (builder :46-54)
+        raise ValueError(
+            f"moco.k ({queue.shape[1]}) must be divisible by the global "
+            f"batch ({batch}); see utils/moco.py:replace_moco_k_in_config")
+    queue[:, queue_ptr:queue_ptr + batch] = keys.T.to(queue.dtype)
+    return (queue_ptr + batch) % queue.shape[1]
+
+
+def train_step(state: MoCoState, im_q: torch.Tensor, im_k: torch.Tensor,
+               cfg: MoCoConfig, *, generator: Optional[torch.Generator] = None,
+               perm: Optional[torch.Tensor] = None,
+               speed_index: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """One step on NDHWC clips [B, T, H, W, 3]; updates ``state`` in place
+    and returns the metrics as 0-d tensors (percent for accuracies)."""
+    model_q, model_k = state.model_q, state.model_k
+    model_q.train()
+    model_k.train()
+
+    # 1. momentum update BEFORE key encoding (reference :507-509)
+    momentum_update(model_q, model_k, cfg.m)
+
+    # 2. dual-speed sampling
+    q_real, k_real, k_neg = diff_speed_gather(
+        im_q, im_k, cfg, perm=perm, speed_index=speed_index,
+        generator=generator)
+
+    # 3. fused 2B key pass, no grad
+    k_a, k_m, k_neg_a, k_neg_m = key_pass(model_k, k_real, k_neg)
+
+    # 4. query pass + loss
+    q_a, q_m = model_q(q_real)
+    loss_a, (logits1, logits2) = avid_loss_dense(q_a, k_a, k_neg_a,
+                                                 state.queue, cfg)
+    l_pos_m = torch.sum(q_m * k_m, dim=1, keepdim=True) / cfg.t
+    l_neg_m = torch.sum(q_m * k_neg_m, dim=1, keepdim=True) / cfg.t
+    loss_m = torch.clamp(cfg.margin - (l_pos_m - l_neg_m), min=0.0).mean()
+    loss = cfg.loss_lambda_a * loss_a + cfg.loss_lambda_m * loss_m
+
+    # 5. backward + SGD
+    state.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    state.optimizer.step()
+
+    # 6. enqueue the negative keys (reference enqueues k_neg_A, :544)
+    state.queue_ptr = queue_update(state.queue, state.queue_ptr, k_neg_a)
+    state.step += 1
+
+    # 7. metrics
+    with torch.no_grad():
+        labels = torch.zeros(q_a.shape[0], dtype=torch.long,
+                             device=q_a.device)
+        acc1_a, acc5_a = accuracy(logits1, labels, topk=(1, 5))
+        acc1_an, acc5_an = accuracy(logits2, labels, topk=(1, 5))
+        acc_m = (l_pos_m > l_neg_m).to(loss.dtype).mean() * 100.0
+        return {"loss": loss.detach(), "loss_A": loss_a.detach(),
+                "loss_M": loss_m.detach(), "acc1_A": acc1_a,
+                "acc5_A": acc5_a, "acc1_A_n": acc1_an, "acc5_A_n": acc5_an,
+                "acc1_M": acc_m}

@@ -1,0 +1,77 @@
+"""Shared building blocks for the port's backbones (torch, NCDHW views).
+
+Port of rspnet_tpu/models/common.py. Activations are NCDHW tensors in
+``torch.channels_last_3d`` memory, which is NDHWC physically, so the pool
+kernel's NDHWC view is a free ``permute``.
+"""
+from __future__ import annotations
+
+from typing import Tuple, Union
+
+import torch
+from torch import nn
+
+from ..ops import max_pool3d as _pool
+
+IntOr3 = Union[int, Tuple[int, int, int]]
+
+
+def _triple(x: IntOr3) -> Tuple[int, int, int]:
+    if isinstance(x, int):
+        return (x, x, x)
+    return tuple(x)
+
+
+class BatchNorm(nn.BatchNorm3d):
+    """torch BatchNorm3d with the JAX package's hyper-parameters.
+
+    rspnet_tpu/models/common.py:BatchNorm (:36) normalizes with the biased
+    batch variance and updates ``running_var`` with the unbiased one, which
+    is what BatchNorm3d does. Its flax momentum m becomes torch 1 - m.
+    """
+
+    def __init__(self, num_features: int, flax_momentum: float = 0.9,
+                 eps: float = 1e-5):
+        super().__init__(num_features, eps=eps, momentum=1.0 - flax_momentum)
+
+
+class ConvBN(nn.Module):
+    """Conv3d (no bias) + BatchNorm + ReLU, named like the reference's
+    BasicConv3d (``conv3d``, ``bn``) (rspnet_tpu/models/common.py:176)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: IntOr3, stride: IntOr3 = 1,
+                 padding: IntOr3 = 0, bn_momentum: float = 0.9,
+                 bn_eps: float = 1e-5):
+        super().__init__()
+        self.conv3d = nn.Conv3d(in_channels, out_channels,
+                                _triple(kernel_size), _triple(stride),
+                                _triple(padding), bias=False)
+        self.bn = BatchNorm(out_channels, bn_momentum, bn_eps)
+        nn.init.kaiming_normal_(self.conv3d.weight, mode="fan_out",
+                                nonlinearity="relu")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.relu(self.bn(self.conv3d(x)))
+
+
+def max_pool3d(x: torch.Tensor, kernel, strides, padding=0) -> torch.Tensor:
+    """torch MaxPool3d semantics (floor mode, -inf padding) on an NCDHW
+    tensor, through kernels K1/K2 (rspnet_tpu/models/common.py:476)."""
+    ndhwc = x.permute(0, 2, 3, 4, 1).contiguous()
+    out = _pool.max_pool3d(ndhwc, kernel, strides, padding)
+    return out.permute(0, 4, 1, 2, 3)
+
+
+class MaxPool3d(nn.Module):
+    def __init__(self, kernel, strides, padding=0):
+        super().__init__()
+        self.geom = (_triple(kernel), _triple(strides), _triple(padding))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return max_pool3d(x, *self.geom)
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """AdaptiveAvgPool3d(1) + flatten: [B, C, T, H, W] -> [B, C]."""
+    return x.mean(dim=(2, 3, 4))
