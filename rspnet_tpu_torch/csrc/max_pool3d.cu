@@ -15,15 +15,38 @@
 //   the separable per-axis form bit for bit). Channels are innermost, so a
 //   warp reads 16-byte vectors of contiguous channels and the window
 //   re-reads hit L1/L2.
-// - Backward (gather form): recompute the stage inputs with the forward
-//   kernel (T-pooled, then H-pooled), then one launch per pooled axis in
-//   reverse order. Each thread owns one element vector of the stage input
-//   and sums, in window-offset order, the cotangents whose window
-//   first-matches it. No atomics, so the result is deterministic and equal
-//   bit for bit to the plain version, which adds in the same order.
+// - Backward, two launches. Composed W -> H -> T, the first-match rule sends
+//   each output's cotangent to exactly one input: the lexicographically
+//   first in-bounds cell, in (dw, dh, dt) order, that holds the window max
+//   (the first W column holding it, in that column the first H row, in that
+//   row the first T frame). One byte holds its offset dt*9 + dh*3 + dw.
+//   1. Route: one thread per output element vector scans its window as the
+//      forward does, keeping the first strict maximum in (dw, dh, dt) order,
+//      and writes the offset to a uint8 [B, To, Ho, Wo, C] buffer.
+//   2. Gather: one thread per input element vector visits its covering
+//      windows in window-offset order and adds g where the route names its
+//      own offset in that window. x is not read. The sum nests one
+//      accumulator per axis, T outermost and W innermost, so it adds in the
+//      order of the staged plain version (W stage, then H, then T); in bf16
+//      the W and H sums are rounded to bf16 before going up a level, as the
+//      plain version rounds each stage's cotangent. A trivial axis
+//      (k = s = 1, p = 0) has no stage and no rounding. No atomics: the
+//      result is deterministic and bit-equal to the plain version in f32
+//      and bf16.
+//   Bytes: x read, route written and read back, g read, dx written, about
+//   the bound plus the route. What holds K2 above that on the H100 is the
+//   window re-reads, not DRAM: at stride 1 each thread of either pass makes
+//   27 loads, served by L1; a strided gather waits on its route loads. So
+//   both passes map a block to a 2 x 2 x 4 pixel tile (neighbours share
+//   L1), and are compiled with the window and strides as constants for the
+//   four pool geometries of S3D-G (a generic instance takes the rest).
+//   Deviation: a window whose in-bounds cells are all -inf routes to an
+//   in-bounds cell; the plain version, padding with -inf, may route it to a
+//   pad cell (its gradient is then dropped). Inputs after a ReLU never hit
+//   this.
 // - Index arithmetic is 32-bit whenever the tensors allow it (64-bit integer
-//   division is a long software sequence on the card); the grid-stride
-//   loop counter stays 64-bit so it cannot wrap.
+//   division is a long software sequence on the card); the forward's
+//   grid-stride loop counter stays 64-bit so it cannot wrap.
 //
 // Plain C interface, loaded with ctypes. Each entry returns
 // cudaGetLastError() after its launches.
@@ -125,74 +148,304 @@ __global__ void pool_fwd(const T* __restrict__ x, T* __restrict__ out,
   }
 }
 
-// Gradient of a 1-axis pool over a tensor viewed as [outer, D, inner]:
-// gin[o, i, j] = sum over windows `on` whose first max sits at i of
-// gout[o, on, j], taken in window-offset order (off = 0 .. k-1). k <= 3.
-template <typename T, int V, typename I>
-__global__ void pool_axis_bwd(const T* __restrict__ vin,
-                              const T* __restrict__ gout,
-                              T* __restrict__ gin, I outer, int D, int n,
-                              I inner, int k, int s, int p) {
-  const I jv_n = inner / V;
-  const I total = outer * D * jv_n;
-  for (int64_t i64 = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-       i64 < total; i64 += (int64_t)gridDim.x * blockDim.x) {
-    const I idx = (I)i64;
-    I r = idx / jv_n;
-    const I j = (idx - r * jv_n) * V;
-    const int i = (int)(r % D);
-    const I o = r / D;
-    const T* col = vin + o * D * inner + j;
-    float acc[V];
+// n / d by multiply and shift for 0 <= n < 2^31 (the 32-bit plans), with
+// m and s from make_div; the 64-bit plans divide. Runtime 32-bit division
+// is a sequence of some twenty instructions, and each thread of K2 needs
+// four of them to find its tile.
+struct Div {
+  uint32_t d, m, s;
+};
+
+template <typename I>
+__device__ __forceinline__ I divide(I n, const Div& v) {
+  if constexpr (sizeof(I) == 4) {
+    const uint32_t hi = __umulhi((uint32_t)n, v.m);
+    return (I)((hi + (uint32_t)n) >> v.s);
+  } else {
+    return n / (I)v.d;
+  }
+}
+
+// The V route bytes of one element vector as one word, lanes in channel
+// order (little-endian); V = 1: the byte.
+template <int V>
+__device__ __forceinline__ uint32_t load_route(const uint8_t* p) {
+  if constexpr (V == 4) return *reinterpret_cast<const uint32_t*>(p);
+  else return *p;
+}
+template <int V>
+__device__ __forceinline__ void store_route(uint8_t* p, const int* r) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<uint32_t*>(p) = (uint32_t)r[0] | (uint32_t)r[1] << 8 |
+                                      (uint32_t)r[2] << 16 |
+                                      (uint32_t)r[3] << 24;
+  } else {
+    *p = (uint8_t)r[0];
+  }
+}
+
+// A route word that matches no code (codes are < 27; bit 7 stays clear).
+constexpr uint32_t kNoRoute = 0x7F7F7F7Fu;
+
+// 0x80 in byte l of the result where lane l of the word routes to code.
+// Route bytes and codes are < 128, so byte l of x + 0x7F..7F carries into
+// its bit 7 exactly when byte l of x is nonzero, and never into byte l + 1.
+template <int V>
+__device__ __forceinline__ uint32_t route_hits(uint32_t word, uint32_t code) {
+  const uint32_t x = word ^ (V == 4 ? code * 0x01010101u : code);
+  return ~(x + kNoRoute) & (V == 4 ? 0x80808080u : 0x80u);
+}
+
+// A float rounded to T and back: how the plain version stores a stage's
+// cotangent.
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  if constexpr (sizeof(T) == 2) return __bfloat162float(__float2bfloat16(v));
+  else return v;
+}
+
+// Thread -> element map of both K2 passes: each thread owns one element
+// vector (V channels of one pixel), and a block of kThreads covers a tile
+// of 2 (T) x 2 (H) x 4 (W) pixels x 16 vectors, so that the window re-reads
+// of neighbouring threads hit L1. A warp holds 16 vectors of 2 pixels, so
+// a route-word load touches at most 2 lines. Tiles run with the channel
+// chunk fastest, then W, H, T, batch.
+constexpr int kTileV = 16, kTileW = 4, kTileH = 2, kTileT = 2;
+static_assert(kTileV * kTileW * kTileH * kTileT == kThreads, "tile != block");
+
+struct Tiles {
+  Div cc, tw, th, tt;
+  int ncc, ntw, nth, ntt;
+};
+
+template <typename I>
+struct Pos {
+  I b, v;
+  int t, h, w;
+  bool ok;
+};
+
+template <typename I>
+__device__ __forceinline__ Pos<I> tile_pos(const Tiles& tl, int T, int H,
+                                           int W, I cv_n) {
+  const int tid = threadIdx.x;
+  const I blk = (I)blockIdx.x;
+  const I r0 = divide(blk, tl.cc);
+  const I r1 = divide(r0, tl.tw);
+  const I r2 = divide(r1, tl.th);
+  Pos<I> q;
+  q.b = divide(r2, tl.tt);
+  const int pix = tid / kTileV;
+  q.v = (blk - r0 * tl.ncc) * kTileV + tid % kTileV;
+  q.w = (int)(r0 - r1 * tl.ntw) * kTileW + pix % kTileW;
+  q.h = (int)(r1 - r2 * tl.nth) * kTileH + pix / kTileW % kTileH;
+  q.t = (int)(r2 - q.b * tl.ntt) * kTileT + pix / (kTileW * kTileH);
+  q.ok = q.v < cv_n && q.w < W && q.h < H && q.t < T;
+  return q;
+}
+
+// Both K2 passes are templates on the window (KT, KH, KW) and strides
+// (ST, SH, SW). A nonzero value is a compile-time constant, which lets the
+// window loops unroll and the window arithmetic fold; 0 reads the value
+// from Geom at run time (the generic instance). Padding is always read at
+// run time.
+#define RSP_K2_PARAMS int KT, int KH, int KW, int ST, int SH, int SW
+#define RSP_K2_ARGS KT, KH, KW, ST, SH, SW
+#define RSP_K2_WINDOW                                              \
+  const int kt = KT ? KT : g.kt, kh = KH ? KH : g.kh;              \
+  const int kw = KW ? KW : g.kw, st = ST ? ST : g.st;              \
+  const int sh = SH ? SH : g.sh, sw = SW ? SW : g.sw;
+
+// The first d < k with in[d] (every window has an in-bounds cell).
+__device__ __forceinline__ int first_in(const bool* in) {
+  return in[0] ? 0 : in[1] ? 1 : 2;
+}
+
+// K2 pass 1. route[b, to, ho, wo, c..c+V) = dt*9 + dh*3 + dw of the first
+// in-bounds window cell, in (dw, dh, dt) order, that holds the window max:
+// the scan starts at the first in-bounds cell and moves only to strictly
+// greater values (so a window of -inf keeps that cell). Capped at 32
+// registers (8 blocks per SM): the window loads need threads in flight more
+// than registers, and the cap measured faster on the card despite a few
+// spilled words in the (3,3,3) and generic instances.
+template <typename T, int V, typename I, RSP_K2_PARAMS>
+__global__ void __launch_bounds__(kThreads, 8)
+    pool_route(const T* __restrict__ x, uint8_t* __restrict__ route, Geom g,
+               Tiles tl) {
+  RSP_K2_WINDOW
+  const I cv_n = g.C / V;
+  const Pos<I> q = tile_pos<I>(tl, g.To, g.Ho, g.Wo, cv_n);
+  if (!q.ok) return;
+  const int t0 = q.t * st - g.pt, h0 = q.h * sh - g.ph, w0 = q.w * sw - g.pw;
+  bool in_t[3], in_h[3], in_w[3];
 #pragma unroll
-    for (int l = 0; l < V; ++l) acc[l] = 0.0f;
-    for (int off = 0; off < k; ++off) {
-      const int num = i + p - off;
-      if (num < 0 || num % s != 0) continue;
-      const int on = num / s;
-      if (on >= n) continue;
-      const int start = on * s - p;
-      float val[3][V], m[V];
-      bool valid[3];
+  for (int d = 0; d < 3; ++d) {
+    in_t[d] = d < kt && t0 + d >= 0 && t0 + d < g.T;
+    in_h[d] = d < kh && h0 + d >= 0 && h0 + d < g.H;
+    in_w[d] = d < kw && w0 + d >= 0 && w0 + d < g.W;
+  }
+  const I row = (I)g.W * g.C, frame = (I)g.H * row;
+  const T* clip = x + q.b * g.T * frame + q.v * V;
+  float m[V], v[V];
+  int best[V];
 #pragma unroll
-      for (int l = 0; l < V; ++l) m[l] = -CUDART_INF_F;
+  for (int l = 0; l < V; ++l) {
+    m[l] = -CUDART_INF_F;
+    best[l] = first_in(in_t) * 9 + first_in(in_h) * 3 + first_in(in_w);
+  }
 #pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        const int q = start + d;
-        valid[d] = d < k && q >= 0 && q < D;
-        if (valid[d]) {
-          loadv<V>(col + (I)q * inner, val[d]);
+  for (int dw = 0; dw < 3; ++dw) {
 #pragma unroll
-          for (int l = 0; l < V; ++l) m[l] = fmaxf(m[l], val[d][l]);
+    for (int dh = 0; dh < 3; ++dh) {
+#pragma unroll
+      for (int dt = 0; dt < 3; ++dt) {
+        if (!(in_w[dw] && in_h[dh] && in_t[dt])) continue;
+        loadv<V>(clip + (I)(t0 + dt) * frame + (I)(h0 + dh) * row +
+                     (I)(w0 + dw) * g.C, v);
+#pragma unroll
+        for (int l = 0; l < V; ++l) {
+          if (v[l] > m[l]) {
+            m[l] = v[l];
+            best[l] = dt * 9 + dh * 3 + dw;
+          }
         }
       }
-      bool take[V];
-      bool any = false;
+    }
+  }
+  const I idx = (((q.b * g.To + q.t) * g.Ho + q.h) * g.Wo + q.w) * cv_n + q.v;
+  store_route<V>(route + idx * V, best);
+}
+
+// The windows of one axis that cover input position i, by window offset:
+// on[off] = (i + p - off) / s where that is exact and in [0, n), else -1.
+// s <= 3, so the division is by a constant.
+__device__ __forceinline__ void covering(int i, int n, int k, int s, int p,
+                                         int* on) {
 #pragma unroll
-      for (int l = 0; l < V; ++l) {
-        int first = -1;
+  for (int off = 0; off < 3; ++off) {
+    const int num = i + p - off;
+    on[off] = -1;
+    if (off >= k || num < 0) continue;
+    const int q = s == 1 ? num : s == 2 ? num >> 1 : (int)((unsigned)num / 3u);
+    if (q * s == num && q < n) on[off] = q;
+  }
+}
+
+// K2 pass 2. dx[b, t, h, w, c..c+V) = the cotangents of the windows whose
+// route names (t, h, w), summed T (outer) / H / W (inner) in window-offset
+// order; a pooled W or H level is rounded to T before it is added up. Per
+// T window that covers the element, the route words of its H x W covering
+// windows are loaded together, then g where some lane's route hits.
+template <typename T, int V, typename I, RSP_K2_PARAMS>
+__global__ void pool_gather(const uint8_t* __restrict__ route,
+                            const T* __restrict__ gout, T* __restrict__ dx,
+                            Geom g, Tiles tl) {
+  RSP_K2_WINDOW
+  // At stride 1 on every axis g is loaded with the route words (one round
+  // trip, not two; each g vector serves up to 27 neighbours from L1). A
+  // strided pool reads g only where a route hits: there most covering
+  // windows route elsewhere, and the eager loads measured slower.
+  constexpr bool kEager = ST == 1 && SH == 1 && SW == 1;
+  const bool pool_h = !(kh == 1 && sh == 1 && g.ph == 0);
+  const bool pool_w = !(kw == 1 && sw == 1 && g.pw == 0);
+  const I cv_n = g.C / V;
+  const Pos<I> q = tile_pos<I>(tl, g.T, g.H, g.W, cv_n);
+  if (!q.ok) return;
+  int on_t[3], on_h[3], on_w[3];
+  covering(q.t, g.To, kt, st, g.pt, on_t);
+  covering(q.h, g.Ho, kh, sh, g.ph, on_h);
+  covering(q.w, g.Wo, kw, sw, g.pw, on_w);
+  const I c = q.v * V;
+  float acc_t[V];
 #pragma unroll
-        for (int d = 0; d < 3; ++d)
-          if (first < 0 && valid[d] && val[d][l] == m[l]) first = d;
-        take[l] = first == off;
-        any = any || take[l];
-      }
-      if (any) {
-        float gv[V];
-        loadv<V>(gout + (o * n + on) * inner + j, gv);
+  for (int l = 0; l < V; ++l) acc_t[l] = 0.0f;
 #pragma unroll
-        for (int l = 0; l < V; ++l)
-          if (take[l]) acc[l] += gv[l];
+  for (int dt = 0; dt < 3; ++dt) {
+    if (on_t[dt] < 0) continue;
+    I off[3][3];
+    uint32_t word[3][3];
+    float ge[3][3][kEager ? V : 1];
+#pragma unroll
+    for (int dh = 0; dh < 3; ++dh) {
+      const I row = ((q.b * g.To + on_t[dt]) * g.Ho + on_h[dh]) * g.Wo;
+#pragma unroll
+      for (int dw = 0; dw < 3; ++dw) {
+        off[dh][dw] = (row + on_w[dw]) * g.C + c;
+        word[dh][dw] = kNoRoute;
+        if (on_h[dh] >= 0 && on_w[dw] >= 0) {
+          word[dh][dw] = load_route<V>(route + off[dh][dw]);
+          if constexpr (kEager) loadv<V>(gout + off[dh][dw], ge[dh][dw]);
+        }
       }
     }
-    storev<V>(gin + idx * V, acc);
+    float acc_h[V];
+#pragma unroll
+    for (int l = 0; l < V; ++l) acc_h[l] = 0.0f;
+#pragma unroll
+    for (int dh = 0; dh < 3; ++dh) {
+      if (on_h[dh] < 0) continue;
+      uint32_t hits[3];
+      float gv[3][V];
+#pragma unroll
+      for (int dw = 0; dw < 3; ++dw) {
+        hits[dw] = route_hits<V>(word[dh][dw], dt * 9 + dh * 3 + dw);
+        if constexpr (kEager) {
+#pragma unroll
+          for (int l = 0; l < V; ++l) gv[dw][l] = ge[dh][dw][l];
+        } else if (hits[dw]) {
+          loadv<V>(gout + off[dh][dw], gv[dw]);
+        } else {
+#pragma unroll
+          for (int l = 0; l < V; ++l) gv[dw][l] = 0.0f;
+        }
+      }
+      float acc_w[V];
+#pragma unroll
+      for (int l = 0; l < V; ++l) acc_w[l] = 0.0f;
+#pragma unroll
+      for (int dw = 0; dw < 3; ++dw) {
+#pragma unroll
+        for (int l = 0; l < V; ++l)
+          if (hits[dw] & (0x80u << (8 * l))) acc_w[l] += gv[dw][l];
+      }
+#pragma unroll
+      for (int l = 0; l < V; ++l)
+        acc_h[l] += pool_w ? round_to<T>(acc_w[l]) : acc_w[l];
+    }
+#pragma unroll
+    for (int l = 0; l < V; ++l)
+      acc_t[l] += pool_h ? round_to<T>(acc_h[l]) : acc_h[l];
   }
+  const I idx = (((q.b * g.T + q.t) * g.H + q.h) * g.W + q.w) * cv_n + q.v;
+  storev<V>(dx + idx * V, acc_t);
 }
 
 int64_t grid_for(int64_t work) {
   int64_t blocks = (work + kThreads - 1) / kThreads;
   if (blocks > (int64_t)1 << 30) blocks = (int64_t)1 << 30;
   return blocks < 1 ? 1 : blocks;
+}
+
+Div make_div(uint32_t d) {
+  Div v;
+  v.d = d;
+  v.s = 0;
+  while (((uint64_t)1 << v.s) < d) ++v.s;
+  v.m = (uint32_t)((((uint64_t)1 << 32) * (((uint64_t)1 << v.s) - d)) / d + 1);
+  return v;
+}
+
+Tiles make_tiles(int cv_n, int W, int H, int T) {
+  Tiles tl;
+  tl.ncc = (cv_n + kTileV - 1) / kTileV;
+  tl.ntw = (W + kTileW - 1) / kTileW;
+  tl.nth = (H + kTileH - 1) / kTileH;
+  tl.ntt = (T + kTileT - 1) / kTileT;
+  tl.cc = make_div(tl.ncc);
+  tl.tw = make_div(tl.ntw);
+  tl.th = make_div(tl.nth);
+  tl.tt = make_div(tl.ntt);
+  return tl;
 }
 
 Geom make_geom(const int64_t* shape, const int* kspec) {
@@ -223,16 +476,6 @@ void fwd_t(const void* x, void* out, const Geom& g, cudaStream_t st) {
       static_cast<const T*>(x), static_cast<T*>(out), g);
 }
 
-template <typename T, int V, typename I>
-void bwd_t(const void* vin, const void* gout, void* gin, int64_t outer,
-           int D, int n, int64_t inner, int k, int s, int p,
-           cudaStream_t st) {
-  const int64_t work = outer * D * (inner / V);
-  pool_axis_bwd<T, V, I><<<(unsigned)grid_for(work), kThreads, 0, st>>>(
-      static_cast<const T*>(vin), static_cast<const T*>(gout),
-      static_cast<T*>(gin), (I)outer, D, n, (I)inner, k, s, p);
-}
-
 template <typename T>
 void fwd_dispatch(const Plan& pl, const void* x, void* out, const Geom& g,
                   cudaStream_t st) {
@@ -251,39 +494,61 @@ void fwd(const Plan& pl, const void* x, void* out, const Geom& g,
   else fwd_dispatch<__nv_bfloat16>(pl, x, out, g, st);
 }
 
-template <typename T>
-void bwd_dispatch(const Plan& pl, const void* vin, const void* gout,
-                  void* gin, int64_t outer, int D, int n, int64_t inner,
-                  int k, int s, int p, cudaStream_t st) {
-  if (pl.vec4) {
-    if (pl.wide)
-      bwd_t<T, 4, int64_t>(vin, gout, gin, outer, D, n, inner, k, s, p, st);
-    else
-      bwd_t<T, 4, int32_t>(vin, gout, gin, outer, D, n, inner, k, s, p, st);
-  } else {
-    if (pl.wide)
-      bwd_t<T, 1, int64_t>(vin, gout, gin, outer, D, n, inner, k, s, p, st);
-    else
-      bwd_t<T, 1, int32_t>(vin, gout, gin, outer, D, n, inner, k, s, p, st);
-  }
+// One K2 call: the route launch over the output, the gather over the input.
+template <typename T, int V, typename I, RSP_K2_PARAMS>
+void bwd_t(const void* x, const void* gout, void* dx, void* route,
+           const Geom& g, cudaStream_t st) {
+  const Tiles to = make_tiles(g.C / V, g.Wo, g.Ho, g.To);
+  pool_route<T, V, I, RSP_K2_ARGS><<<(unsigned)((int64_t)g.B * to.ntt *
+                                                to.nth * to.ntw * to.ncc),
+                                     kThreads, 0, st>>>(
+      static_cast<const T*>(x), static_cast<uint8_t*>(route), g, to);
+  const Tiles ti = make_tiles(g.C / V, g.W, g.H, g.T);
+  pool_gather<T, V, I, RSP_K2_ARGS><<<(unsigned)((int64_t)g.B * ti.ntt *
+                                                 ti.nth * ti.ntw * ti.ncc),
+                                      kThreads, 0, st>>>(
+      static_cast<const uint8_t*>(route), static_cast<const T*>(gout),
+      static_cast<T*>(dx), g, ti);
 }
 
-void bwd(const Plan& pl, const void* vin, const void* gout, void* gin,
-         int64_t outer, int D, int n, int64_t inner, int k, int s, int p,
-         cudaStream_t st) {
-  if (pl.dtype == 0)
-    bwd_dispatch<float>(pl, vin, gout, gin, outer, D, n, inner, k, s, p, st);
-  else
-    bwd_dispatch<__nv_bfloat16>(pl, vin, gout, gin, outer, D, n, inner, k,
-                                s, p, st);
+bool geometry_is(const Geom& g, int kt, int kh, int kw, int st, int sh,
+                 int sw) {
+  return g.kt == kt && g.kh == kh && g.kw == kw && g.st == st &&
+         g.sh == sh && g.sw == sw;
+}
+
+// Compile-time instances for the pool geometries of S3D-G (V = 4, 32-bit
+// plans); any other call takes the generic instance.
+template <typename T>
+void bwd_dispatch(const Plan& pl, const void* x, const void* gout, void* dx,
+                  void* route, const Geom& g, cudaStream_t st) {
+  if (pl.vec4 && !pl.wide) {
+    if (geometry_is(g, 1, 3, 3, 1, 2, 2))
+      return bwd_t<T, 4, int32_t, 1, 3, 3, 1, 2, 2>(x, gout, dx, route, g, st);
+    if (geometry_is(g, 3, 3, 3, 1, 1, 1))
+      return bwd_t<T, 4, int32_t, 3, 3, 3, 1, 1, 1>(x, gout, dx, route, g, st);
+    if (geometry_is(g, 3, 3, 3, 2, 2, 2))
+      return bwd_t<T, 4, int32_t, 3, 3, 3, 2, 2, 2>(x, gout, dx, route, g, st);
+    if (geometry_is(g, 2, 2, 2, 2, 2, 2))
+      return bwd_t<T, 4, int32_t, 2, 2, 2, 2, 2, 2>(x, gout, dx, route, g, st);
+  }
+  if (pl.vec4) {
+    if (pl.wide) bwd_t<T, 4, int64_t, 0, 0, 0, 0, 0, 0>(x, gout, dx, route, g, st);
+    else bwd_t<T, 4, int32_t, 0, 0, 0, 0, 0, 0>(x, gout, dx, route, g, st);
+  } else {
+    if (pl.wide) bwd_t<T, 1, int64_t, 0, 0, 0, 0, 0, 0>(x, gout, dx, route, g, st);
+    else bwd_t<T, 1, int32_t, 0, 0, 0, 0, 0, 0>(x, gout, dx, route, g, st);
+  }
 }
 
 Plan make_plan(int dtype, const Geom& g) {
   Plan pl;
   pl.dtype = dtype;
   pl.vec4 = g.C % 4 == 0;
-  // the input is the largest tensor of a call (stages are pooled from it)
-  pl.wide = (int64_t)g.B * g.T * g.H * g.W * g.C >= ((int64_t)1 << 31);
+  // input or output (k = 2, p = 1 makes an axis one longer)
+  const int64_t in = (int64_t)g.B * g.T * g.H * g.W * g.C;
+  const int64_t out = (int64_t)g.B * g.To * g.Ho * g.Wo * g.C;
+  pl.wide = (in > out ? in : out) >= ((int64_t)1 << 31);
   return pl;
 }
 
@@ -300,60 +565,17 @@ int rsp_maxpool3d_fwd(const void* x, void* out, int dtype,
   return (int)cudaGetLastError();
 }
 
-// dx = d maxpool(x) / dx applied to g. stage1 and stage2 are scratch
-// buffers for the T-pooled and TH-pooled stages (unused when the axis is
-// trivial); gbuf1/gbuf2 hold the cotangents of the W and H stages. All
-// NDHWC contiguous, dtype of x.
-int rsp_maxpool3d_bwd(const void* x, const void* g, void* dx, void* stage1,
-                      void* stage2, void* gbuf1, void* gbuf2, int dtype,
-                      const int64_t* shape, const int* kspec, void* stream) {
+// dx = d maxpool(x) / dx applied to g: two launches, route then gather.
+// route is uint8 scratch of the output's shape [B, To, Ho, Wo, C]; x, g and
+// dx are NDHWC contiguous in the dtype of x.
+int rsp_maxpool3d_bwd(const void* x, const void* g, void* dx, void* route,
+                      int dtype, const int64_t* shape, const int* kspec,
+                      void* stream) {
   Geom geo = make_geom(shape, kspec);
   Plan pl = make_plan(dtype, geo);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int64_t B = geo.B, H = geo.H, W = geo.W, C = geo.C;
-  const int T = geo.T, To = geo.To, Ho = geo.Ho, Wo = geo.Wo;
-  const bool pool_t = !(geo.kt == 1 && geo.st == 1 && geo.pt == 0);
-  const bool pool_h = !(geo.kh == 1 && geo.sh == 1 && geo.ph == 0);
-  const bool pool_w = !(geo.kw == 1 && geo.sw == 1 && geo.pw == 0);
-
-  // stage chain: s0 = x [T,H,W], s1 = T-pooled [To,H,W], s2 = [To,Ho,W]
-  const void* s0 = x;
-  const void* s1 = x;
-  if (pool_t) {
-    Geom gt = geo;
-    gt.kh = gt.kw = 1; gt.sh = gt.sw = 1; gt.ph = gt.pw = 0;
-    gt.Ho = geo.H; gt.Wo = geo.W;
-    fwd(pl, x, stage1, gt, st);
-    s1 = stage1;
-  }
-  const void* s2 = s1;
-  if (pool_h) {
-    Geom gh = geo;
-    gh.T = To; gh.kt = 1; gh.st = 1; gh.pt = 0; gh.To = To;
-    gh.kw = 1; gh.sw = 1; gh.pw = 0; gh.Wo = geo.W;
-    fwd(pl, s1, stage2, gh, st);
-    s2 = stage2;
-  }
-
-  // reverse walk: W, then H, then T. The last pooled axis writes dx.
-  const bool last_is_w = !pool_h && !pool_t;
-  const bool last_is_h = !pool_t;
-  const void* gcur = g;
-  if (pool_w) {
-    void* dst = last_is_w ? dx : gbuf1;
-    bwd(pl, s2, gcur, dst, B * To * Ho, (int)W, Wo, C, geo.kw, geo.sw,
-        geo.pw, st);
-    gcur = dst;
-  }
-  if (pool_h) {
-    void* dst = last_is_h ? dx : gbuf2;
-    bwd(pl, s1, gcur, dst, B * To, (int)H, Ho, W * C, geo.kh, geo.sh, geo.ph,
-        st);
-    gcur = dst;
-  }
-  if (pool_t) {
-    bwd(pl, s0, gcur, dx, B, T, To, H * W * C, geo.kt, geo.st, geo.pt, st);
-  }
+  if (pl.dtype == 0) bwd_dispatch<float>(pl, x, g, dx, route, geo, st);
+  else bwd_dispatch<__nv_bfloat16>(pl, x, g, dx, route, geo, st);
   return (int)cudaGetLastError();
 }
 

@@ -34,8 +34,8 @@ PROTOTYPES = {
     "max_pool3d": {
         "rsp_maxpool3d_fwd": [_P, _P, _I, ctypes.POINTER(_I64),
                               ctypes.POINTER(_I), _P],
-        "rsp_maxpool3d_bwd": [_P, _P, _P, _P, _P, _P, _P, _I,
-                              ctypes.POINTER(_I64), ctypes.POINTER(_I), _P],
+        "rsp_maxpool3d_bwd": [_P, _P, _P, _P, _I, ctypes.POINTER(_I64),
+                              ctypes.POINTER(_I), _P],
     },
     "color_augment": {
         "rsp_color_augment_nblocks": [_I64],

@@ -15,13 +15,17 @@ input position lies in some window, every window holds a real value). This
 covers all 13 pool sites of S3D-G, the strided stage pools included (the
 Pallas kernel took stride 1 only).
 
-On this card both directions are bound by device-memory traffic: read x
-(and g), write out (or dx). The forward computes each output's whole window
-in one thread (one launch). The backward recomputes the per-axis stages
-from x and walks the axes in reverse, one gather-form launch per pooled
-axis: each thread owns one input element and sums, in window-offset order,
-the cotangents that first-match it. No atomics, so it is deterministic and
-equal bit for bit to ``max_pool3d_bwd_plain`` in f32. See
+On this card the least time of both directions is set by device-memory
+traffic: read x (and g), write out (or dx); the source says what holds
+each above it. The forward computes each output's whole window in one
+thread (one launch). The backward is two launches. Composed W -> H
+-> T, the first-match rule sends each output's cotangent to one input, and
+a route pass writes that input's window offset as one byte per output
+element. A gather pass then gives each thread one input element, which
+adds, in window-offset order, the cotangents whose route names it, with one
+nested accumulator per axis (and, in bf16, the plain version's rounding of
+each stage). No atomics and no stage buffers: it is deterministic and
+equal bit for bit to ``max_pool3d_bwd_plain`` in f32 and bf16. See
 ``csrc/max_pool3d.cu``.
 
 A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel or
@@ -38,9 +42,8 @@ from . import _build
 
 Triple = Tuple[int, int, int]
 
-# Wrapper calls that launched a kernel: K1 counts forward calls, K2 backward
-# calls (each backward call is one to three launches, one per pooled axis,
-# plus the stage recompute).
+# Wrapper calls that launched a kernel: K1 counts forward calls (one launch
+# each), K2 backward calls (two launches each: route, then gather).
 launches = {"max_pool3d_fwd": 0, "max_pool3d_bwd": 0}
 # plain-version calls on CUDA tensors (the main path must make none)
 plain_cuda_calls = {"max_pool3d_fwd": 0, "max_pool3d_bwd": 0}
@@ -175,8 +178,8 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def _ptr(t) -> int:
-    return t.data_ptr() if t is not None else 0
+def _ptr(t: torch.Tensor) -> int:
+    return t.data_ptr()
 
 
 def _out_shape(shape, k, s, p):
@@ -218,25 +221,11 @@ def max_pool3d_bwd(x: torch.Tensor, g: torch.Tensor, k, s,
         raise TypeError("max_pool3d_bwd: g must match x's dtype and device")
     if all(_trivial(*a) for a in zip(k, s, p)):
         raise ValueError("max_pool3d_bwd: nothing to pool")
-    B, T, H, W, C = x.shape
-    To, Ho = oshape[1], oshape[2]
-    pool_t = not _trivial(k[0], s[0], p[0])
-    pool_h = not _trivial(k[1], s[1], p[1])
-    pool_w = not _trivial(k[2], s[2], p[2])
-
-    def buf(shape, needed):
-        return (torch.empty(shape, dtype=x.dtype, device=x.device)
-                if needed else None)
-
-    stage1 = buf((B, To, H, W, C), pool_t)
-    stage2 = buf((B, To, Ho, W, C), pool_h)
-    gbuf1 = buf((B, To, Ho, W, C), pool_w and (pool_h or pool_t))
-    gbuf2 = buf((B, To, H, W, C), pool_h and pool_t)
+    route = torch.empty(oshape, dtype=torch.uint8, device=x.device)
     dx = torch.empty_like(x)
     lib = _build.library("max_pool3d")
     shape_arr, kspec = _geometry_args(x.shape, k, s, p)
-    err = lib.rsp_maxpool3d_bwd(_ptr(x), _ptr(g), _ptr(dx), _ptr(stage1),
-                                _ptr(stage2), _ptr(gbuf1), _ptr(gbuf2),
+    err = lib.rsp_maxpool3d_bwd(_ptr(x), _ptr(g), _ptr(dx), _ptr(route),
                                 _DTYPES[x.dtype], shape_arr, kspec, _stream())
     _build.check(err, "rsp_maxpool3d_bwd")
     launches["max_pool3d_bwd"] += 1
