@@ -11,11 +11,14 @@ Phases, each printing its own lines:
      K1/K2 (max pool fwd/bwd) at the 13 S3D-G pool sites (batch cut to 4)
      and at small geometries no site has (K2's generic instance, the
      one-channel path), f32 and bf16, with and without ties, both
-     bit-equal; K3 (colour augment) over all 24
+     bit-equal; K1/K2 on two tensors of over 2^31 elements (the 64-bit
+     index plans); K3 (colour augment) over all 24
      op orders x gray on/off x flip on/off x gray before/after, uint8 and
      f32 input, at [8, 32, 224, 224, 3];
   3. timing with CUDA events at the main path's shapes, beside the bound,
-     the plain version and, for the pool, F.max_pool3d;
+     the plain version and the library; K1/K2 are also held bit-equal to
+     their plain versions there, and K2's compile-time instances are timed
+     against its generic instance (the max_pool3d_generic build);
   4. the main path: ``rspnet_tpu_torch.pretrain.main`` on
      config/pretrain/s3dg.jsonnet with synthetic data and device geometry,
      3 steps (``-d``), counting kernel launches.
@@ -70,6 +73,13 @@ EXTRA_POOL_SITES = [
      (0, 0, 0)),
     ("generic.k2_p1", (3, 5, 5, 4), (2, 2, 2), (1, 1, 1), (1, 1, 1)),
     ("generic.mixed", (6, 9, 10, 12), (3, 2, 3), (2, 1, 3), (1, 0, 1)),
+]
+# ([B, T, H, W, C], kernel, stride, padding, dtype) of tensors with 2^31 or
+# more elements: the 64-bit index plans of K1 and K2, on the four-channel
+# path in f32 (a floor tail on H and W) and the one-channel path in bf16
+WIDE_POOL_SITES = [
+    ((33, 16, 1023, 1025, 4), (3, 3, 3), (2, 2, 2), (1, 1, 1), "float32"),
+    ((43, 16, 1024, 1024, 3), (3, 3, 3), (1, 1, 1), (1, 1, 1), "bfloat16"),
 ]
 K3_TOL = 1e-4
 MAIN_BATCH = 64                # batch_size of config/pretrain/s3dg.jsonnet
@@ -160,6 +170,36 @@ def check_pool(dev, batch: int):
     return worst_fwd, worst
 
 
+def check_pool_wide(dev) -> None:
+    """K1/K2 on tensors of 2^31 or more elements (the 64-bit index plans),
+    held bit-equal to the plain version clip by clip."""
+    import torch
+    from rspnet_tpu_torch.ops import max_pool3d as mp
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for shape, k, s, p, dtype_name in WIDE_POOL_SITES:
+        dtype = getattr(torch, dtype_name)
+        x = torch.randn(shape, generator=gen, device=dev).relu_().to(dtype)
+        out = mp.max_pool3d_fwd(x, k, s, p)
+        g = torch.randn(out.shape, generator=gen, device=dev).to(dtype)
+        dx = mp.max_pool3d_bwd(x, g, k, s, p)
+        require(max(x.numel(), out.numel()) >= 2 ** 31,
+                f"wide case {shape} is under 2^31 elements")
+        fwd_eq = bwd_eq = True
+        for lo in range(0, shape[0], 4):
+            xs, gs = x[lo:lo + 4], g[lo:lo + 4]
+            fwd_eq &= torch.equal(out[lo:lo + 4],
+                                  mp.max_pool3d_fwd_plain(xs, k, s, p))
+            bwd_eq &= torch.equal(dx[lo:lo + 4],
+                                  mp.max_pool3d_bwd_plain(xs, gs, k, s, p))
+        what = f"K1/K2 64-bit plan {list(shape)} k={k} s={s} p={p} {dtype_name}"
+        print(f"check {what}: {x.numel()} elements, fwd bit-equal {fwd_eq}, "
+              f"bwd bit-equal {bwd_eq}", flush=True)
+        require(fwd_eq and bwd_eq, f"{what}: differs from the plain version")
+        del x, out, g, dx
+        torch.cuda.empty_cache()
+
+
 def check_color(dev, batch: int, frames: int, size: int) -> float:
     """K3 vs plain over every order x gray x flip x gray-before, u8 and f32
     input; returns the largest abs error on the normalized output."""
@@ -214,26 +254,40 @@ def check_color(dev, batch: int, frames: int, size: int) -> float:
 # ---------------------------------------------------------------------------
 
 def time_pool(dev, batch: int) -> dict:
+    """K1/K2 at every site at the main path's shapes: timed beside the
+    bound, the plain version, the library and (K2) the generic instance,
+    and held bit-equal to the plain version on the same inputs."""
     import torch
     import torch.nn.functional as F
     from rspnet_tpu_torch.ops import max_pool3d as mp
 
     tot = {k: 0.0 for k in ("fwd", "fwd_plain", "fwd_lib", "fwd_bound",
-                            "bwd", "bwd_plain", "bwd_lib", "bwd_bound")}
+                            "bwd", "bwd_again", "bwd_generic", "bwd_plain",
+                            "bwd_lib", "bwd_bound")}
     by = {}
     gen = torch.Generator(device=dev).manual_seed(2)
+    generic = "max_pool3d_generic"
     for name, shape4, k, s, p in POOL_SITES:
         x = torch.relu(torch.randn((batch, *shape4), generator=gen,
                                    device=dev))
         out = mp.max_pool3d_fwd(x, k, s, p)
         g = torch.randn(out.shape, generator=gen, device=dev)
+        fwd_eq = torch.equal(out, mp.max_pool3d_fwd_plain(x, k, s, p))
+        dref = mp.max_pool3d_bwd_plain(x, g, k, s, p)
+        bwd_eq = torch.equal(mp.max_pool3d_bwd(x, g, k, s, p), dref)
+        gen_eq = torch.equal(mp.max_pool3d_bwd(x, g, k, s, p, build=generic),
+                             dref)
+        del dref
         xn = x.permute(0, 4, 1, 2, 3)          # NCDHW view, channels-last
         _, idx = F.max_pool3d(xn, k, s, p, return_indices=True)
         gn = g.permute(0, 4, 1, 2, 3)
         f = time_ms(lambda: mp.max_pool3d_fwd(x, k, s, p))
         fp = time_ms(lambda: mp.max_pool3d_fwd_plain(x, k, s, p), 2, 1)
         fl = time_ms(lambda: F.max_pool3d(xn, k, s, p))
+        # the compile-time instance, the generic one, the first again
         b = time_ms(lambda: mp.max_pool3d_bwd(x, g, k, s, p))
+        bg = time_ms(lambda: mp.max_pool3d_bwd(x, g, k, s, p, build=generic))
+        b2 = time_ms(lambda: mp.max_pool3d_bwd(x, g, k, s, p))
         bp = time_ms(lambda: mp.max_pool3d_bwd_plain(x, g, k, s, p), 2, 1)
         bl = time_ms(lambda: torch.ops.aten.max_pool3d_with_indices_backward(
             gn, xn, list(k), list(s), list(p), [1, 1, 1], False, idx))
@@ -243,14 +297,24 @@ def time_pool(dev, batch: int) -> dict:
                         x.numel() * 4 * (k[0] + k[1] + k[2]))
         by["fwd"], by["bwd"] = fby, bby
         for key, v in (("fwd", f), ("fwd_plain", fp), ("fwd_lib", fl),
-                       ("fwd_bound", fb), ("bwd", b), ("bwd_plain", bp),
+                       ("fwd_bound", fb), ("bwd", b), ("bwd_again", b2),
+                       ("bwd_generic", bg), ("bwd_plain", bp),
                        ("bwd_lib", bl), ("bwd_bound", bb)):
             tot[key] += v
         print(f"time {name:20s} [{batch},{','.join(map(str, shape4))}] "
               f"K1 {f:.4f} ms (bound {fb:.4f}, plain {fp:.3f}, "
-              f"F.max_pool3d {fl:.4f}) | K2 {b:.4f} ms (bound {bb:.4f}, "
-              f"plain {bp:.3f}, aten bwd {bl:.4f})", flush=True)
+              f"F.max_pool3d {fl:.4f}) | K2 {b:.4f} ms (again {b2:.4f}, "
+              f"generic instance {bg:.4f}, bound {bb:.4f}, plain {bp:.3f}, "
+              f"aten bwd {bl:.4f}) | bit-equal to plain: K1 {fwd_eq} K2 "
+              f"{bwd_eq} K2 generic {gen_eq}", flush=True)
+        require(fwd_eq and bwd_eq and gen_eq,
+                f"{name} at batch {batch}: a kernel differs from its plain "
+                f"version (K1 {fwd_eq}, K2 {bwd_eq}, K2 generic {gen_eq})")
         del x, out, g, idx
+    print(f"time K2 over the {len(POOL_SITES)} sites: {tot['bwd']:.4f} ms, "
+          f"again {tot['bwd_again']:.4f}, generic instance "
+          f"{tot['bwd_generic']:.4f}, aten bwd {tot['bwd_lib']:.4f}, bound "
+          f"{tot['bwd_bound']:.4f}", flush=True)
     tot["by"] = by
     return tot
 
@@ -432,6 +496,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     err_fwd, err_bwd = check_pool(dev, batch=4)                   # phase 2
+    check_pool_wide(dev)
     err_color = check_color(dev, batch=8, frames=32, size=224)
 
     pool = time_pool(dev, batch=MAIN_BATCH)                       # phase 3

@@ -49,7 +49,8 @@
 //   grid-stride loop counter stays 64-bit so it cannot wrap.
 //
 // Plain C interface, loaded with ctypes. Each entry returns
-// cudaGetLastError() after its launches.
+// cudaGetLastError() after its launches (K2 returns
+// cudaErrorInvalidConfiguration instead for a shape its grid cannot hold).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -148,24 +149,6 @@ __global__ void pool_fwd(const T* __restrict__ x, T* __restrict__ out,
   }
 }
 
-// n / d by multiply and shift for 0 <= n < 2^31 (the 32-bit plans), with
-// m and s from make_div; the 64-bit plans divide. Runtime 32-bit division
-// is a sequence of some twenty instructions, and each thread of K2 needs
-// four of them to find its tile.
-struct Div {
-  uint32_t d, m, s;
-};
-
-template <typename I>
-__device__ __forceinline__ I divide(I n, const Div& v) {
-  if constexpr (sizeof(I) == 4) {
-    const uint32_t hi = __umulhi((uint32_t)n, v.m);
-    return (I)((hi + (uint32_t)n) >> v.s);
-  } else {
-    return n / (I)v.d;
-  }
-}
-
 // The V route bytes of one element vector as one word, lanes in channel
 // order (little-endian); V = 1: the byte.
 template <int V>
@@ -208,38 +191,35 @@ __device__ __forceinline__ float round_to(float v) {
 // vector (V channels of one pixel), and a block of kThreads covers a tile
 // of 2 (T) x 2 (H) x 4 (W) pixels x 16 vectors, so that the window re-reads
 // of neighbouring threads hit L1. A warp holds 16 vectors of 2 pixels, so
-// a route-word load touches at most 2 lines. Tiles run with the channel
-// chunk fastest, then W, H, T, batch.
+// a route-word load touches at most 2 lines. The grid of tiles is 3-D:
+// x = W tile x channel chunk (chunk fastest), y = H tile, z = batch x T
+// tile (T fastest), so a thread finds its tile with two 32-bit divisions
+// by block-uniform counts. y and z are limited to 65535 blocks (H up to
+// 131070, B * ceil(T / 2) up to 65535); a larger call returns
+// cudaErrorInvalidConfiguration and launches nothing.
 constexpr int kTileV = 16, kTileW = 4, kTileH = 2, kTileT = 2;
 static_assert(kTileV * kTileW * kTileH * kTileT == kThreads, "tile != block");
 
-struct Tiles {
-  Div cc, tw, th, tt;
-  int ncc, ntw, nth, ntt;
-};
-
 template <typename I>
 struct Pos {
-  I b, v;
-  int t, h, w;
+  I b;
+  int v, t, h, w;
   bool ok;
 };
 
+// The element vector of this thread in a [B, T, H, W, V * cv_n] tensor.
 template <typename I>
-__device__ __forceinline__ Pos<I> tile_pos(const Tiles& tl, int T, int H,
-                                           int W, I cv_n) {
-  const int tid = threadIdx.x;
-  const I blk = (I)blockIdx.x;
-  const I r0 = divide(blk, tl.cc);
-  const I r1 = divide(r0, tl.tw);
-  const I r2 = divide(r1, tl.th);
+__device__ __forceinline__ Pos<I> tile_pos(int T, int H, int W, int cv_n) {
+  const unsigned ncc = (cv_n + kTileV - 1) / kTileV;
+  const unsigned ntt = (T + kTileT - 1) / kTileT;
+  const unsigned tw = blockIdx.x / ncc, b = blockIdx.z / ntt;
+  const int tid = threadIdx.x, pix = tid / kTileV;
   Pos<I> q;
-  q.b = divide(r2, tl.tt);
-  const int pix = tid / kTileV;
-  q.v = (blk - r0 * tl.ncc) * kTileV + tid % kTileV;
-  q.w = (int)(r0 - r1 * tl.ntw) * kTileW + pix % kTileW;
-  q.h = (int)(r1 - r2 * tl.nth) * kTileH + pix / kTileW % kTileH;
-  q.t = (int)(r2 - q.b * tl.ntt) * kTileT + pix / (kTileW * kTileH);
+  q.b = (I)b;
+  q.v = (int)(blockIdx.x - tw * ncc) * kTileV + tid % kTileV;
+  q.w = (int)tw * kTileW + pix % kTileW;
+  q.h = (int)blockIdx.y * kTileH + pix / kTileW % kTileH;
+  q.t = (int)(blockIdx.z - b * ntt) * kTileT + pix / (kTileW * kTileH);
   q.ok = q.v < cv_n && q.w < W && q.h < H && q.t < T;
   return q;
 }
@@ -270,11 +250,11 @@ __device__ __forceinline__ int first_in(const bool* in) {
 // spilled words in the (3,3,3) and generic instances.
 template <typename T, int V, typename I, RSP_K2_PARAMS>
 __global__ void __launch_bounds__(kThreads, 8)
-    pool_route(const T* __restrict__ x, uint8_t* __restrict__ route, Geom g,
-               Tiles tl) {
+    pool_route(const T* __restrict__ x, uint8_t* __restrict__ route,
+               Geom g) {
   RSP_K2_WINDOW
-  const I cv_n = g.C / V;
-  const Pos<I> q = tile_pos<I>(tl, g.To, g.Ho, g.Wo, cv_n);
+  const int cv_n = g.C / V;
+  const Pos<I> q = tile_pos<I>(g.To, g.Ho, g.Wo, cv_n);
   if (!q.ok) return;
   const int t0 = q.t * st - g.pt, h0 = q.h * sh - g.ph, w0 = q.w * sw - g.pw;
   bool in_t[3], in_h[3], in_w[3];
@@ -339,7 +319,7 @@ __device__ __forceinline__ void covering(int i, int n, int k, int s, int p,
 template <typename T, int V, typename I, RSP_K2_PARAMS>
 __global__ void pool_gather(const uint8_t* __restrict__ route,
                             const T* __restrict__ gout, T* __restrict__ dx,
-                            Geom g, Tiles tl) {
+                            Geom g) {
   RSP_K2_WINDOW
   // At stride 1 on every axis g is loaded with the route words (one round
   // trip, not two; each g vector serves up to 27 neighbours from L1). A
@@ -348,8 +328,8 @@ __global__ void pool_gather(const uint8_t* __restrict__ route,
   constexpr bool kEager = ST == 1 && SH == 1 && SW == 1;
   const bool pool_h = !(kh == 1 && sh == 1 && g.ph == 0);
   const bool pool_w = !(kw == 1 && sw == 1 && g.pw == 0);
-  const I cv_n = g.C / V;
-  const Pos<I> q = tile_pos<I>(tl, g.T, g.H, g.W, cv_n);
+  const int cv_n = g.C / V;
+  const Pos<I> q = tile_pos<I>(g.T, g.H, g.W, cv_n);
   if (!q.ok) return;
   int on_t[3], on_h[3], on_w[3];
   covering(q.t, g.To, kt, st, g.pt, on_t);
@@ -426,26 +406,15 @@ int64_t grid_for(int64_t work) {
   return blocks < 1 ? 1 : blocks;
 }
 
-Div make_div(uint32_t d) {
-  Div v;
-  v.d = d;
-  v.s = 0;
-  while (((uint64_t)1 << v.s) < d) ++v.s;
-  v.m = (uint32_t)((((uint64_t)1 << 32) * (((uint64_t)1 << v.s) - d)) / d + 1);
-  return v;
-}
-
-Tiles make_tiles(int cv_n, int W, int H, int T) {
-  Tiles tl;
-  tl.ncc = (cv_n + kTileV - 1) / kTileV;
-  tl.ntw = (W + kTileW - 1) / kTileW;
-  tl.nth = (H + kTileH - 1) / kTileH;
-  tl.ntt = (T + kTileT - 1) / kTileT;
-  tl.cc = make_div(tl.ncc);
-  tl.tw = make_div(tl.ntw);
-  tl.th = make_div(tl.nth);
-  tl.tt = make_div(tl.ntt);
-  return tl;
+// The tile grid of a K2 pass over a [B, T, H, W, V * cv_n] tensor (see
+// tile_pos); false when it passes the grid limits.
+bool tile_grid(int B, int T, int H, int W, int cv_n, dim3* grid) {
+  const int64_t x = (int64_t)((cv_n + kTileV - 1) / kTileV) *
+                    ((W + kTileW - 1) / kTileW);
+  const int64_t y = (H + kTileH - 1) / kTileH;
+  const int64_t z = (int64_t)B * ((T + kTileT - 1) / kTileT);
+  *grid = dim3((unsigned)x, (unsigned)y, (unsigned)z);
+  return x < ((int64_t)1 << 31) && y <= 65535 && z <= 65535;
 }
 
 Geom make_geom(const int64_t* shape, const int* kspec) {
@@ -495,20 +464,21 @@ void fwd(const Plan& pl, const void* x, void* out, const Geom& g,
 }
 
 // One K2 call: the route launch over the output, the gather over the input.
+// Returns cudaErrorInvalidConfiguration, launching nothing, when a tile grid
+// passes its limits.
 template <typename T, int V, typename I, RSP_K2_PARAMS>
-void bwd_t(const void* x, const void* gout, void* dx, void* route,
-           const Geom& g, cudaStream_t st) {
-  const Tiles to = make_tiles(g.C / V, g.Wo, g.Ho, g.To);
-  pool_route<T, V, I, RSP_K2_ARGS><<<(unsigned)((int64_t)g.B * to.ntt *
-                                                to.nth * to.ntw * to.ncc),
-                                     kThreads, 0, st>>>(
-      static_cast<const T*>(x), static_cast<uint8_t*>(route), g, to);
-  const Tiles ti = make_tiles(g.C / V, g.W, g.H, g.T);
-  pool_gather<T, V, I, RSP_K2_ARGS><<<(unsigned)((int64_t)g.B * ti.ntt *
-                                                 ti.nth * ti.ntw * ti.ncc),
-                                      kThreads, 0, st>>>(
+int bwd_t(const void* x, const void* gout, void* dx, void* route,
+          const Geom& g, cudaStream_t st) {
+  dim3 grid_out, grid_in;
+  if (!tile_grid(g.B, g.To, g.Ho, g.Wo, g.C / V, &grid_out) ||
+      !tile_grid(g.B, g.T, g.H, g.W, g.C / V, &grid_in))
+    return (int)cudaErrorInvalidConfiguration;
+  pool_route<T, V, I, RSP_K2_ARGS><<<grid_out, kThreads, 0, st>>>(
+      static_cast<const T*>(x), static_cast<uint8_t*>(route), g);
+  pool_gather<T, V, I, RSP_K2_ARGS><<<grid_in, kThreads, 0, st>>>(
       static_cast<const uint8_t*>(route), static_cast<const T*>(gout),
-      static_cast<T*>(dx), g, ti);
+      static_cast<T*>(dx), g);
+  return (int)cudaGetLastError();
 }
 
 bool geometry_is(const Geom& g, int kt, int kh, int kw, int st, int sh,
@@ -518,10 +488,12 @@ bool geometry_is(const Geom& g, int kt, int kh, int kw, int st, int sh,
 }
 
 // Compile-time instances for the pool geometries of S3D-G (V = 4, 32-bit
-// plans); any other call takes the generic instance.
+// plans); any other call takes the generic instance, and so does every call
+// of a build with RSP_K2_GENERIC defined (chip_smoke.py times the two).
 template <typename T>
-void bwd_dispatch(const Plan& pl, const void* x, const void* gout, void* dx,
-                  void* route, const Geom& g, cudaStream_t st) {
+int bwd_dispatch(const Plan& pl, const void* x, const void* gout, void* dx,
+                 void* route, const Geom& g, cudaStream_t st) {
+#ifndef RSP_K2_GENERIC
   if (pl.vec4 && !pl.wide) {
     if (geometry_is(g, 1, 3, 3, 1, 2, 2))
       return bwd_t<T, 4, int32_t, 1, 3, 3, 1, 2, 2>(x, gout, dx, route, g, st);
@@ -532,13 +504,15 @@ void bwd_dispatch(const Plan& pl, const void* x, const void* gout, void* dx,
     if (geometry_is(g, 2, 2, 2, 2, 2, 2))
       return bwd_t<T, 4, int32_t, 2, 2, 2, 2, 2, 2>(x, gout, dx, route, g, st);
   }
+#endif
   if (pl.vec4) {
-    if (pl.wide) bwd_t<T, 4, int64_t, 0, 0, 0, 0, 0, 0>(x, gout, dx, route, g, st);
-    else bwd_t<T, 4, int32_t, 0, 0, 0, 0, 0, 0>(x, gout, dx, route, g, st);
-  } else {
-    if (pl.wide) bwd_t<T, 1, int64_t, 0, 0, 0, 0, 0, 0>(x, gout, dx, route, g, st);
-    else bwd_t<T, 1, int32_t, 0, 0, 0, 0, 0, 0>(x, gout, dx, route, g, st);
+    if (pl.wide)
+      return bwd_t<T, 4, int64_t, 0, 0, 0, 0, 0, 0>(x, gout, dx, route, g, st);
+    return bwd_t<T, 4, int32_t, 0, 0, 0, 0, 0, 0>(x, gout, dx, route, g, st);
   }
+  if (pl.wide)
+    return bwd_t<T, 1, int64_t, 0, 0, 0, 0, 0, 0>(x, gout, dx, route, g, st);
+  return bwd_t<T, 1, int32_t, 0, 0, 0, 0, 0, 0>(x, gout, dx, route, g, st);
 }
 
 Plan make_plan(int dtype, const Geom& g) {
@@ -574,9 +548,8 @@ int rsp_maxpool3d_bwd(const void* x, const void* g, void* dx, void* route,
   Geom geo = make_geom(shape, kspec);
   Plan pl = make_plan(dtype, geo);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (pl.dtype == 0) bwd_dispatch<float>(pl, x, g, dx, route, geo, st);
-  else bwd_dispatch<__nv_bfloat16>(pl, x, g, dx, route, geo, st);
-  return (int)cudaGetLastError();
+  if (pl.dtype == 0) return bwd_dispatch<float>(pl, x, g, dx, route, geo, st);
+  return bwd_dispatch<__nv_bfloat16>(pl, x, g, dx, route, geo, st);
 }
 
 }  // extern "C"

@@ -5,7 +5,7 @@ library with a plain C interface and loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds). Builds happen at first use, into
 ``build/rspnet_tpu_torch/`` under the checkout, with the source's content hash
 in the file name so an edited source is rebuilt. ``build_all`` starts one
-``nvcc`` per source at once and waits for all of them.
+``nvcc`` per library at once and waits for all of them.
 """
 from __future__ import annotations
 
@@ -22,6 +22,10 @@ PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "rspnet_tpu_torch"
 SOURCES = {"max_pool3d": "max_pool3d.cu", "color_augment": "color_augment.cu"}
+# libraries built from a source with extra nvcc flags: (source name, flags).
+# max_pool3d_generic sends every K2 call to the generic instance, so that
+# chip_smoke.py can time it against the compile-time instances.
+VARIANTS = {"max_pool3d_generic": ("max_pool3d", ["-DRSP_K2_GENERIC"])}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -63,16 +67,22 @@ def _nvcc() -> str:
     return path
 
 
+def _source(name: str):
+    """(source file, nvcc flags) of library ``name``."""
+    base, extra = VARIANTS.get(name, (name, []))
+    return CSRC_DIR / SOURCES[base], [*NVCC_FLAGS, *extra]
+
+
 def _lib_path(name: str) -> Path:
-    src = (CSRC_DIR / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:12]}.so"
+    src, flags = _source(name)
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
 
 
 def build_all(names: List[str] = None) -> Dict[str, Path]:
-    """Compile every (or the named) kernel source that has no current
-    library yet, all nvcc processes at once. Raises on any failure."""
-    names = list(SOURCES) if names is None else names
+    """Compile every (or the named) kernel library that is not current
+    yet, all nvcc processes at once. Raises on any failure."""
+    names = [*SOURCES, *VARIANTS] if names is None else names
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {n: _lib_path(n) for n in names}
     procs = {}
@@ -80,7 +90,8 @@ def build_all(names: List[str] = None) -> Dict[str, Path]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / SOURCES[n])]
+        src, flags = _source(n)
+        cmd = [_nvcc(), *flags, "-o", str(tmp), str(src)]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
                     tmp, out)
@@ -89,7 +100,7 @@ def build_all(names: List[str] = None) -> Dict[str, Path]:
         log, _ = proc.communicate()
         build_logs[n] = log
         if proc.returncode != 0:
-            failed.append(f"{SOURCES[n]}:\n{log}")
+            failed.append(f"{n}:\n{log}")
             continue
         os.replace(tmp, out)
     if failed:
@@ -104,7 +115,8 @@ def library(name: str) -> ctypes.CDLL:
         if lib is None:
             path = build_all([name])[name]
             lib = ctypes.CDLL(str(path))
-            for fn, argtypes in PROTOTYPES[name].items():
+            base = VARIANTS.get(name, (name,))[0]
+            for fn, argtypes in PROTOTYPES[base].items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
             _libs[name] = lib

@@ -205,9 +205,10 @@ def max_pool3d_fwd(x: torch.Tensor, k, s, p) -> torch.Tensor:
     return out
 
 
-def max_pool3d_bwd(x: torch.Tensor, g: torch.Tensor, k, s,
-                   p) -> torch.Tensor:
-    """K2: dx of the NDHWC max pool for cotangent g (first-match routing)."""
+def max_pool3d_bwd(x: torch.Tensor, g: torch.Tensor, k, s, p, *,
+                   build: str = "max_pool3d") -> torch.Tensor:
+    """K2: dx of the NDHWC max pool for cotangent g (first-match routing).
+    ``build`` names the kernel library (``_build.VARIANTS``)."""
     k, s, p = _triple(k), _triple(s), _triple(p)
     check_geometry(x.shape, k, s, p)
     oshape = _out_shape(x.shape, k, s, p)
@@ -223,7 +224,7 @@ def max_pool3d_bwd(x: torch.Tensor, g: torch.Tensor, k, s,
         raise ValueError("max_pool3d_bwd: nothing to pool")
     route = torch.empty(oshape, dtype=torch.uint8, device=x.device)
     dx = torch.empty_like(x)
-    lib = _build.library("max_pool3d")
+    lib = _build.library(build)
     shape_arr, kspec = _geometry_args(x.shape, k, s, p)
     err = lib.rsp_maxpool3d_bwd(_ptr(x), _ptr(g), _ptr(dx), _ptr(route),
                                 _DTYPES[x.dtype], shape_arr, kspec, _stream())

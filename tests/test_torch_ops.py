@@ -109,6 +109,22 @@ def test_pool_cpu_path_launches_no_kernel():
     assert tmp.launches == before
 
 
+def test_pool_generic_build_takes_the_same_source():
+    """The build chip_smoke.py times K2's generic instance with: the same
+    source under a define that turns the compile-time instances off."""
+    from rspnet_tpu_torch.ops import _build
+    src, flags = _build._source("max_pool3d_generic")
+    assert src == _build._source("max_pool3d")[0]
+    assert flags == [*_build.NVCC_FLAGS, "-DRSP_K2_GENERIC"]
+    assert "#ifndef RSP_K2_GENERIC" in src.read_text()
+    assert (_build._lib_path("max_pool3d_generic")
+            != _build._lib_path("max_pool3d"))
+    x, g = torch.randn(1, 4, 6, 6, 4), torch.randn(1, 4, 6, 6, 4)
+    assert torch.equal(
+        tmp.max_pool3d_bwd(x, g, 3, 1, 1, build="max_pool3d_generic"),
+        tmp.max_pool3d_bwd_plain(x, g, 3, 1, 1))
+
+
 def test_pool_rejects_unsupported_geometry():
     x = torch.zeros(1, 4, 8, 8, 2)
     with pytest.raises(ValueError):
