@@ -9,16 +9,20 @@ Phases, each printing its own lines:
      all at once), with the build time;
   2. each kernel against its plain-torch version on the card:
      K1/K2 (max pool fwd/bwd) at the 13 S3D-G pool sites (batch cut to 4)
-     and at small geometries no site has (K2's generic instance, the
-     one-channel path), f32 and bf16, with and without ties, both
-     bit-equal; K1/K2 on two tensors of over 2^31 elements (the 64-bit
+     and at small shapes no site has (the generic instances, the
+     one-channel path, the compile-time instances at other paddings and
+     planes), f32 and bf16, with and without ties, both
+     bit-equal; K1 (its tiled and generic instances) on inputs that hold
+     NaN, NaN where the plain version has NaN and bit-equal elsewhere;
+     K1/K2 on two tensors of over 2^31 elements (the 64-bit
      index plans); K3 (colour augment) over all 24
      op orders x gray on/off x flip on/off x gray before/after, uint8 and
      f32 input, at [8, 32, 224, 224, 3];
   3. timing with CUDA events at the main path's shapes, beside the bound,
      the plain version and the library; K1/K2 are also held bit-equal to
-     their plain versions there, and K2's compile-time instances are timed
-     against its generic instance (the max_pool3d_generic build);
+     their plain versions there (K1 at the fused key pass's batch 128
+     too), and their compile-time instances are timed against their
+     generic instances (the max_pool3d_generic build);
   4. the main path: ``rspnet_tpu_torch.pretrain.main`` on
      config/pretrain/s3dg.jsonnet with synthetic data and device geometry,
      3 steps (``-d``), counting kernel launches.
@@ -58,10 +62,13 @@ POOL_SITES = [
     ("sepInc_5c.branch3", (2, 7, 7, 832), (3, 3, 3), (1, 1, 1), (1, 1, 1)),
 ]
 # (name, [T, H, W, C], kernel, stride, padding) that no S3D-G site has: the
-# kernels' one-channel-per-thread path (C % 4 != 0) and K2's generic
-# instance (C % 4 == 0, a geometry without a compile-time instance), over
+# kernels' one-channel-per-thread path (C % 4 != 0) and their generic
+# instances (C % 4 == 0, a geometry without a compile-time instance), over
 # the pooling suite's odd geometries and k = 2, p = 1 (an output longer
-# than its input)
+# than its input); and the compile-time instances (C % 4 == 0, S3D-G's
+# geometries) at paddings and planes S3D-G does not have: K1's floor tail,
+# a frame walk from t = -1, no padding, ragged tiles and a partial
+# channel chunk
 EXTRA_POOL_SITES = [
     ("odd.floor_tail", (8, 15, 15, 5), (3, 3, 3), (2, 2, 2), (1, 1, 1)),
     ("odd.window_eq_stride", (5, 9, 9, 2), (3, 3, 3), (3, 3, 3), (0, 0, 0)),
@@ -73,6 +80,10 @@ EXTRA_POOL_SITES = [
      (0, 0, 0)),
     ("generic.k2_p1", (3, 5, 5, 4), (2, 2, 2), (1, 1, 1), (1, 1, 1)),
     ("generic.mixed", (6, 9, 10, 12), (3, 2, 3), (2, 1, 3), (1, 0, 1)),
+    ("tile.floor_tail", (8, 15, 15, 8), (3, 3, 3), (2, 2, 2), (1, 1, 1)),
+    ("tile.k2_p1", (3, 5, 5, 4), (2, 2, 2), (2, 2, 2), (1, 1, 1)),
+    ("tile.branch3_p0", (5, 9, 11, 8), (3, 3, 3), (1, 1, 1), (0, 0, 0)),
+    ("tile.stem_odd", (4, 9, 13, 12), (1, 3, 3), (1, 2, 2), (0, 1, 1)),
 ]
 # ([B, T, H, W, C], kernel, stride, padding, dtype) of tensors with 2^31 or
 # more elements: the 64-bit index plans of K1 and K2, on the four-channel
@@ -81,6 +92,14 @@ WIDE_POOL_SITES = [
     ((33, 16, 1023, 1025, 4), (3, 3, 3), (2, 2, 2), (1, 1, 1), "float32"),
     ((43, 16, 1024, 1024, 3), (3, 3, 3), (1, 1, 1), (1, 1, 1), "bfloat16"),
 ]
+# sites whose inputs hold NaN and -inf (phase 2): each K1 instance (the
+# four S3D-G geometries, also at their edge cases) and the generic one
+# (C % 4 != 0, another geometry)
+NAN_POOL_SITES = ("maxPool1", "sepInc_3b.branch3", "maxPool_sepInc_4b",
+                  "maxPool_sepInc_5b", "sepInc_5b.branch3", "odd.floor_tail",
+                  "generic.mixed", "tile.floor_tail", "tile.k2_p1",
+                  "tile.branch3_p0", "tile.stem_odd")
+GENERIC = "max_pool3d_generic"   # the build without compile-time instances
 K3_TOL = 1e-4
 MAIN_BATCH = 64                # batch_size of config/pretrain/s3dg.jsonnet
 
@@ -170,6 +189,36 @@ def check_pool(dev, batch: int):
     return worst_fwd, worst
 
 
+def check_pool_nan(dev, batch: int) -> None:
+    """K1 (default and generic builds) on inputs with NaN and -inf cells:
+    the NaN masks equal the plain version's, the other values are
+    bit-equal."""
+    import torch
+    from rspnet_tpu_torch.ops import max_pool3d as mp
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    sites = {name: rest for name, *rest in POOL_SITES + EXTRA_POOL_SITES}
+    for name in NAN_POOL_SITES:
+        shape4, k, s, p = sites[name]
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((batch, *shape4), generator=gen, device=dev)
+            u = torch.rand(x.shape, generator=gen, device=dev)
+            x = x.masked_fill(u < 0.01, float("nan"))
+            x = x.masked_fill((u >= 0.01) & (u < 0.02), float("-inf"))
+            x = x.to(dtype)
+            ref = mp.max_pool3d_fwd_plain(x, k, s, p)
+            nan = torch.isnan(ref)
+            for build in ("max_pool3d", GENERIC):
+                out = mp.max_pool3d_fwd(x, k, s, p, build=build)
+                ok = (torch.equal(torch.isnan(out), nan)
+                      and torch.equal(out[~nan], ref[~nan]))
+                print(f"check K1 NaN {name:20s} {str(dtype):15s} {build:18s}"
+                      f" nan outputs {int(nan.sum())}/{nan.numel()} "
+                      f"same NaN mask and values {ok}", flush=True)
+                require(ok, f"K1 {name} {dtype} {build}: NaN input differs "
+                            f"from the plain version")
+
+
 def check_pool_wide(dev) -> None:
     """K1/K2 on tensors of 2^31 or more elements (the 64-bit index plans),
     held bit-equal to the plain version clip by clip."""
@@ -253,26 +302,54 @@ def check_color(dev, batch: int, frames: int, size: int) -> float:
 # phase 3: timing at the main path's shapes
 # ---------------------------------------------------------------------------
 
+def check_pool_fwd(dev, batch: int) -> None:
+    """K1 (default and generic builds) bit-equal to the plain version at
+    every site at a main-path batch that time_pool does not take (the
+    fused key pass pools 2B clips)."""
+    import torch
+    from rspnet_tpu_torch.ops import max_pool3d as mp
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    for name, shape4, k, s, p in POOL_SITES:
+        x = torch.relu(torch.randn((batch, *shape4), generator=gen,
+                                   device=dev))
+        ref = mp.max_pool3d_fwd_plain(x, k, s, p)
+        eq = torch.equal(mp.max_pool3d_fwd(x, k, s, p), ref)
+        eq_gen = torch.equal(mp.max_pool3d_fwd(x, k, s, p, build=GENERIC),
+                             ref)
+        print(f"check K1 {name:20s} [{batch},{','.join(map(str, shape4))}] "
+              f"bit-equal to plain: K1 {eq} K1 generic {eq_gen}", flush=True)
+        require(eq and eq_gen, f"K1 {name} at batch {batch}: differs from "
+                               f"the plain version (K1 {eq}, generic {eq_gen})")
+        del x, ref
+    torch.cuda.empty_cache()
+
+
 def time_pool(dev, batch: int) -> dict:
     """K1/K2 at every site at the main path's shapes: timed beside the
-    bound, the plain version, the library and (K2) the generic instance,
+    bound, the plain version, the library and the generic instances,
     and held bit-equal to the plain version on the same inputs."""
     import torch
     import torch.nn.functional as F
     from rspnet_tpu_torch.ops import max_pool3d as mp
 
-    tot = {k: 0.0 for k in ("fwd", "fwd_plain", "fwd_lib", "fwd_bound",
-                            "bwd", "bwd_again", "bwd_generic", "bwd_plain",
-                            "bwd_lib", "bwd_bound")}
+    tot = {k: 0.0 for k in ("fwd", "fwd_again", "fwd_generic", "fwd_plain",
+                            "fwd_lib", "fwd_bound", "bwd", "bwd_again",
+                            "bwd_generic", "bwd_plain", "bwd_lib",
+                            "bwd_bound")}
     by = {}
     gen = torch.Generator(device=dev).manual_seed(2)
-    generic = "max_pool3d_generic"
+    generic = GENERIC
     for name, shape4, k, s, p in POOL_SITES:
         x = torch.relu(torch.randn((batch, *shape4), generator=gen,
                                    device=dev))
         out = mp.max_pool3d_fwd(x, k, s, p)
         g = torch.randn(out.shape, generator=gen, device=dev)
-        fwd_eq = torch.equal(out, mp.max_pool3d_fwd_plain(x, k, s, p))
+        fref = mp.max_pool3d_fwd_plain(x, k, s, p)
+        fwd_eq = torch.equal(out, fref)
+        fgen_eq = torch.equal(mp.max_pool3d_fwd(x, k, s, p, build=generic),
+                              fref)
+        del fref
         dref = mp.max_pool3d_bwd_plain(x, g, k, s, p)
         bwd_eq = torch.equal(mp.max_pool3d_bwd(x, g, k, s, p), dref)
         gen_eq = torch.equal(mp.max_pool3d_bwd(x, g, k, s, p, build=generic),
@@ -281,7 +358,10 @@ def time_pool(dev, batch: int) -> dict:
         xn = x.permute(0, 4, 1, 2, 3)          # NCDHW view, channels-last
         _, idx = F.max_pool3d(xn, k, s, p, return_indices=True)
         gn = g.permute(0, 4, 1, 2, 3)
+        # the compile-time instance, the generic one, the first again
         f = time_ms(lambda: mp.max_pool3d_fwd(x, k, s, p))
+        fg = time_ms(lambda: mp.max_pool3d_fwd(x, k, s, p, build=generic))
+        f2 = time_ms(lambda: mp.max_pool3d_fwd(x, k, s, p))
         fp = time_ms(lambda: mp.max_pool3d_fwd_plain(x, k, s, p), 2, 1)
         fl = time_ms(lambda: F.max_pool3d(xn, k, s, p))
         # the compile-time instance, the generic one, the first again
@@ -296,21 +376,29 @@ def time_pool(dev, batch: int) -> dict:
         bb, bby = bound((2 * x.numel() + g.numel()) * 4,
                         x.numel() * 4 * (k[0] + k[1] + k[2]))
         by["fwd"], by["bwd"] = fby, bby
-        for key, v in (("fwd", f), ("fwd_plain", fp), ("fwd_lib", fl),
+        for key, v in (("fwd", f), ("fwd_again", f2), ("fwd_generic", fg),
+                       ("fwd_plain", fp), ("fwd_lib", fl),
                        ("fwd_bound", fb), ("bwd", b), ("bwd_again", b2),
                        ("bwd_generic", bg), ("bwd_plain", bp),
                        ("bwd_lib", bl), ("bwd_bound", bb)):
             tot[key] += v
         print(f"time {name:20s} [{batch},{','.join(map(str, shape4))}] "
-              f"K1 {f:.4f} ms (bound {fb:.4f}, plain {fp:.3f}, "
-              f"F.max_pool3d {fl:.4f}) | K2 {b:.4f} ms (again {b2:.4f}, "
-              f"generic instance {bg:.4f}, bound {bb:.4f}, plain {bp:.3f}, "
-              f"aten bwd {bl:.4f}) | bit-equal to plain: K1 {fwd_eq} K2 "
-              f"{bwd_eq} K2 generic {gen_eq}", flush=True)
-        require(fwd_eq and bwd_eq and gen_eq,
+              f"K1 {f:.4f} ms (again {f2:.4f}, generic instance {fg:.4f}, "
+              f"bound {fb:.4f}, plain {fp:.3f}, F.max_pool3d {fl:.4f}) | "
+              f"K2 {b:.4f} ms (again {b2:.4f}, generic instance {bg:.4f}, "
+              f"bound {bb:.4f}, plain {bp:.3f}, aten bwd {bl:.4f}) | "
+              f"bit-equal to plain: K1 {fwd_eq} K1 generic {fgen_eq} K2 "
+              f"{bwd_eq} K2 generic {gen_eq}",
+              flush=True)
+        require(fwd_eq and fgen_eq and bwd_eq and gen_eq,
                 f"{name} at batch {batch}: a kernel differs from its plain "
-                f"version (K1 {fwd_eq}, K2 {bwd_eq}, K2 generic {gen_eq})")
+                f"version (K1 {fwd_eq}, K1 generic {fgen_eq}, K2 {bwd_eq}, "
+                f"K2 generic {gen_eq})")
         del x, out, g, idx
+    print(f"time K1 over the {len(POOL_SITES)} sites: {tot['fwd']:.4f} ms, "
+          f"again {tot['fwd_again']:.4f}, generic instance "
+          f"{tot['fwd_generic']:.4f}, F.max_pool3d {tot['fwd_lib']:.4f}, "
+          f"bound {tot['fwd_bound']:.4f}", flush=True)
     print(f"time K2 over the {len(POOL_SITES)} sites: {tot['bwd']:.4f} ms, "
           f"again {tot['bwd_again']:.4f}, generic instance "
           f"{tot['bwd_generic']:.4f}, aten bwd {tot['bwd_lib']:.4f}, bound "
@@ -410,6 +498,7 @@ def main_path(batch: int, profile: bool = False) -> dict:
 
 
 _KERNEL_GROUPS = [
+    # pool_fwd also matches K1's tiled instances, pool_fwd_tile<...>
     ("K1/K2 max pool", ("pool_fwd", "pool_route", "pool_gather")),
     ("K3 colour augment", ("luma_partials", "apply_chain")),
     ("batch norm", ("batch_norm", "batchnorm", "bn_")),
@@ -445,7 +534,8 @@ def report_profile(prof, wall_s: float) -> None:
     for name, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"profile group {name:20s} {ms:10.1f} ms  "
               f"{ms / max(total, 1e-9):.3f}", flush=True)
-    # K2 is two launches a call: pool_route and pool_gather, once each
+    # K1 is one launch a call (pool_fwd_tile, or pool_fwd off S3D-G's
+    # geometries); K2 two: pool_route and pool_gather
     for e in kernels:
         if any(k in e.key for k in _KERNEL_GROUPS[0][1]):
             print(f"profile pool kernel {dev_us(e) / 1e3:9.1f} ms "
@@ -496,10 +586,12 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     err_fwd, err_bwd = check_pool(dev, batch=4)                   # phase 2
+    check_pool_nan(dev, batch=4)
     check_pool_wide(dev)
     err_color = check_color(dev, batch=8, frames=32, size=224)
 
-    pool = time_pool(dev, batch=MAIN_BATCH)                       # phase 3
+    check_pool_fwd(dev, batch=2 * MAIN_BATCH)                     # phase 3
+    pool = time_pool(dev, batch=MAIN_BATCH)
     color = time_color(dev, batch=MAIN_BATCH, frames=32, size=224)
     torch.cuda.empty_cache()
 

@@ -9,12 +9,32 @@
 //
 // Both directions are bound by device-memory traffic (read x [and g], write
 // out [or dx]); the window arithmetic is a handful of compares per element.
+// Every max of the forward propagates NaN (a window holding a NaN gives
+// NaN), as the plain version's torch.maximum and the JAX pool's jnp.maximum
+// do.
 //
-// - Forward: one thread per output pixel and 4 channels computes the max of
-//   the whole k_t x k_h x k_w window directly (max is exact, so this equals
-//   the separable per-axis form bit for bit). Channels are innermost, so a
-//   warp reads 16-byte vectors of contiguous channels and the window
-//   re-reads hit L1/L2.
+// - Forward (K1). What held the first design (one thread per output pixel
+//   and 4 channels, the whole window from global memory) above its bytes
+//   was the window re-reads, not DRAM: at stride 1 each output made 27
+//   16-byte loads, and the H and T neighbours of a window lay in other
+//   blocks, so most re-reads went to L2. The tiled design (pool_fwd_tile)
+//   gives a block an output tile of TH x 8 pixels x 8 element vectors
+//   (32 channels) and walks it through the clip frame by frame. Each
+//   frame's input box, ((TH-1)*sh+kh) x (7*sw+kw) pixels of the tile's
+//   channels, is copied once into shared memory (cp.async, two stages, so
+//   the next frame loads while this one is reduced); cells outside the
+//   tensor hold -inf and never win. Each thread then takes the max along
+//   W, then H, for its output column and TH/4 rows, from shared memory,
+//   and along T in registers over the last kt frames. An input vector
+//   thus comes from L2 about box/tile times (1.56 at (3,3,3)/1, no T
+//   halo), and a stride-1 output costs 6 shared-memory reads instead of
+//   27 loads. The max is exact, so the W -> H -> T order changes no bit.
+//   Compile-time instances for the four pool geometries of S3D-G (V = 4,
+//   32-bit plans); pool_fwd, the first design, is the generic instance
+//   for every other call. Measured by chip_smoke.py on an H100 (700 W),
+//   f32, batch 64: the 13 S3D-G sites take 2.68-2.72 ms against the
+//   generic instance's 4.82-4.84 and a 2.15 ms bound; the nine stride-1
+//   sites about 1.0 ms (bound 0.76), the four strided ones 1.6 (1.39).
 // - Backward, two launches. Composed W -> H -> T, the first-match rule sends
 //   each output's cotangent to exactly one input: the lexicographically
 //   first in-bounds cell, in (dw, dh, dt) order, that holds the window max
@@ -43,7 +63,9 @@
 //   Deviation: a window whose in-bounds cells are all -inf routes to an
 //   in-bounds cell; the plain version, padding with -inf, may route it to a
 //   pad cell (its gradient is then dropped). Inputs after a ReLU never hit
-//   this.
+//   this. Deviation: the route's strict > never picks a NaN cell, so a
+//   window holding a NaN sends its cotangent to its largest number; the
+//   plain version matches no cell of such a window and drops it.
 // - Index arithmetic is 32-bit whenever the tensors allow it (64-bit integer
 //   division is a long software sequence on the card); the forward's
 //   grid-stride loop counter stays 64-bit so it cannot wrap.
@@ -110,8 +132,16 @@ struct Geom {
   int kt, kh, kw, st, sh, sw, pt, ph, pw;
 };
 
+// max(a, b), NaN when either is NaN (torch.maximum, jnp.maximum).
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
 // out[b, to, ho, wo, c..c+V) = max over the window; pad cells are skipped
-// (they hold -inf in the reference and never win).
+// (they hold -inf in the reference and never win). The generic instance of
+// K1: every call that pool_fwd_tile does not take.
 template <typename T, int V, typename I>
 __global__ void pool_fwd(const T* __restrict__ x, T* __restrict__ out,
                          Geom g) {
@@ -141,11 +171,181 @@ __global__ void pool_fwd(const T* __restrict__ x, T* __restrict__ out,
           if (w < 0 || w >= g.W) continue;
           loadv<V>(row + (I)w * g.C, v);
 #pragma unroll
-          for (int l = 0; l < V; ++l) m[l] = fmaxf(m[l], v[l]);
+          for (int l = 0; l < V; ++l) m[l] = max_nan(m[l], v[l]);
         }
       }
     }
     storev<V>(out + idx * V, m);
+  }
+}
+
+// -- K1, tiled ---------------------------------------------------------------
+// 16-byte (f32) or 8-byte (bf16) element vector copied to shared memory
+// without passing through registers.
+template <typename T>
+__device__ __forceinline__ void copy_async(T* smem, const T* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  if constexpr (sizeof(T) == 4)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(gmem)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+                 "l"(gmem)
+                 : "memory");
+}
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// waits for all but the newest committed group
+__device__ __forceinline__ void copy_wait_prev() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Output tile of one block: TH (template) x kFwdTW pixels x kFwdCV element
+// vectors of 4 channels. Thread tid owns vector tid % kFwdCV of output
+// column tid / kFwdCV % kFwdTW, and TH / 4 consecutive output rows from
+// row tid / (kFwdCV * kFwdTW) * TH / 4.
+constexpr int kFwdCV = 8, kFwdTW = 8;
+
+// out[b, :, ht*TH .. +TH, wt*8 .. +8, 32 channels of chunk cc] for the
+// block (blockIdx.x = wt * ncc + cc, blockIdx.y = ht, blockIdx.z = b):
+// frames are walked in order from the first window's first frame (-pt) to
+// the last window's last frame; a frame outside [0, T) is -inf and is not
+// loaded. Output frame to is written once its last frame, to*st - pt +
+// kt - 1, has been reduced.
+template <typename T, int KT, int KH, int KW, int ST, int SH, int SW, int TH>
+__global__ void __launch_bounds__(kThreads)
+    pool_fwd_tile(const T* __restrict__ x, T* __restrict__ out, Geom g) {
+  constexpr int V = 4, CV = kFwdCV, TW = kFwdTW;
+  constexpr int RH = TH * TW * CV / kThreads;    // output rows of a thread
+  static_assert(RH * kThreads == TH * TW * CV, "tile != block");
+  constexpr int BH = (TH - 1) * SH + KH, BW = (TW - 1) * SW + KW;
+  constexpr int CELLS = BH * BW * CV;            // box vectors of a frame
+  constexpr int PER = (CELLS + kThreads - 1) / kThreads;
+  constexpr int ROWS = (RH - 1) * SH + KH;       // box rows of a thread
+  __shared__ __align__(16) T box[2][CELLS * V];
+
+  const int tid = threadIdx.x;
+  const int cv_n = g.C / V;
+  const int ncc = (cv_n + CV - 1) / CV;
+  const int wt = blockIdx.x / ncc, cc = blockIdx.x - wt * ncc;
+  const int ht = blockIdx.y, b = blockIdx.z;
+  const int h0 = ht * TH * SH - g.ph, w0 = wt * TW * SW - g.pw;
+  const int c0 = cc * CV;
+
+  // The box cells this thread copies, as element offsets in a frame (the
+  // same in every frame); -1 for a cell it does not copy. A cell outside
+  // the tensor holds -inf in both stages from the start.
+  int src[PER];
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int i = tid + j * kThreads;
+    src[j] = -1;
+    if (i >= CELLS) continue;
+    const int v = i % CV, px = i / CV;
+    const int h = h0 + px / BW, w = w0 + px % BW;
+    if (h >= 0 && h < g.H && w >= 0 && w < g.W) {
+      if (c0 + v < cv_n) src[j] = (h * g.W + w) * g.C + (c0 + v) * V;
+    } else {
+      const float inf[V] = {-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F,
+                            -CUDART_INF_F};
+      storev<V>(&box[0][i * V], inf);
+      storev<V>(&box[1][i * V], inf);
+    }
+  }
+
+  const int frame = g.H * g.W * g.C;
+  const T* clip = x + b * g.T * frame;
+  auto load = [&](int t, int stage) {
+    const T* f = clip + t * frame;
+#pragma unroll
+    for (int j = 0; j < PER; ++j)
+      if (src[j] >= 0) copy_async(&box[stage][(tid + j * kThreads) * V],
+                                  f + src[j]);
+  };
+
+  const int v = tid % CV, col = tid / CV % TW, row0 = tid / (CV * TW) * RH;
+  const int wo = wt * TW + col, ho0 = ht * TH + row0;
+  const bool store = c0 + v < cv_n && wo < g.Wo;
+  T* dst = out + (((b * g.To) * g.Ho + ho0) * g.Wo + wo) * g.C +
+           (c0 + v) * V;
+  const int oframe = g.Ho * g.Wo * g.C;
+
+  // ring[d]: the H x W max of frame t - (KT - 1) + d, for this thread's rows
+  float ring[KT][RH][V];
+#pragma unroll
+  for (int d = 0; d < KT; ++d)
+#pragma unroll
+    for (int r = 0; r < RH; ++r)
+#pragma unroll
+      for (int l = 0; l < V; ++l) ring[d][r][l] = -CUDART_INF_F;
+
+  const int t_first = -g.pt, t_last = (g.To - 1) * ST - g.pt + KT - 1;
+  if (t_first >= 0) load(t_first, 0);
+  copy_commit();
+  for (int t = t_first; t <= t_last; ++t) {
+    const int stage = (t - t_first) & 1;
+    if (t + 1 <= t_last && t + 1 >= 0 && t + 1 < g.T) load(t + 1, stage ^ 1);
+    copy_commit();
+    copy_wait_prev();
+    __syncthreads();
+#pragma unroll
+    for (int d = 0; d + 1 < KT; ++d)
+#pragma unroll
+      for (int r = 0; r < RH; ++r)
+#pragma unroll
+        for (int l = 0; l < V; ++l) ring[d][r][l] = ring[d + 1][r][l];
+    if (t >= 0 && t < g.T) {
+      // W: the max of KW columns in each of the thread's box rows
+      float rowm[ROWS][V];
+#pragma unroll
+      for (int rr = 0; rr < ROWS; ++rr) {
+        const T* cell =
+            &box[stage][(((row0 * SH + rr) * BW + col * SW) * CV + v) * V];
+        loadv<V>(cell, rowm[rr]);
+#pragma unroll
+        for (int dw = 1; dw < KW; ++dw) {
+          float c[V];
+          loadv<V>(cell + dw * CV * V, c);
+#pragma unroll
+          for (int l = 0; l < V; ++l) rowm[rr][l] = max_nan(rowm[rr][l], c[l]);
+        }
+      }
+      // H: the max of KH rows for each output row
+#pragma unroll
+      for (int r = 0; r < RH; ++r)
+#pragma unroll
+        for (int l = 0; l < V; ++l) {
+          float m = rowm[r * SH][l];
+#pragma unroll
+          for (int dh = 1; dh < KH; ++dh) m = max_nan(m, rowm[r * SH + dh][l]);
+          ring[KT - 1][r][l] = m;
+        }
+    } else {
+#pragma unroll
+      for (int r = 0; r < RH; ++r)
+#pragma unroll
+        for (int l = 0; l < V; ++l) ring[KT - 1][r][l] = -CUDART_INF_F;
+    }
+    // T: output frame to ends with frame t
+    const int j = t + g.pt - (KT - 1);
+    if (store && j >= 0 && j % ST == 0) {
+      const int to = j / ST;
+#pragma unroll
+      for (int r = 0; r < RH; ++r) {
+        if (ho0 + r >= g.Ho) continue;
+        float m[V];
+#pragma unroll
+        for (int l = 0; l < V; ++l) {
+          m[l] = ring[0][r][l];
+#pragma unroll
+          for (int d = 1; d < KT; ++d) m[l] = max_nan(m[l], ring[d][r][l]);
+        }
+        storev<V>(dst + to * oframe + r * g.Wo * g.C, m);
+      }
+    }
+    __syncthreads();
   }
 }
 
@@ -445,9 +645,61 @@ void fwd_t(const void* x, void* out, const Geom& g, cudaStream_t st) {
       static_cast<const T*>(x), static_cast<T*>(out), g);
 }
 
+bool geometry_is(const Geom& g, int kt, int kh, int kw, int st, int sh,
+                 int sw) {
+  return g.kt == kt && g.kh == kh && g.kw == kw && g.st == st &&
+         g.sh == sh && g.sw == sw;
+}
+
+// The grid of pool_fwd_tile<..., TH> (V = 4); false when it passes the grid
+// limits (B or the H tiles over 65535), or when the row offsets of a ragged
+// last H tile (up to TH - 1 rows past Ho) would pass 32 bits.
+template <int TH>
+bool fwd_tile_grid(const Geom& g, dim3* grid) {
+  const int64_t x = (int64_t)((g.C / 4 + kFwdCV - 1) / kFwdCV) *
+                    ((g.Wo + kFwdTW - 1) / kFwdTW);
+  const int64_t y = (g.Ho + TH - 1) / TH;
+  const int64_t rows = (int64_t)g.B * g.To * g.Ho + TH;
+  *grid = dim3((unsigned)x, (unsigned)y, (unsigned)g.B);
+  return x < ((int64_t)1 << 31) && y <= 65535 && g.B <= 65535 &&
+         rows * g.Wo * g.C < ((int64_t)1 << 31);
+}
+
+// Launches the tiled K1 for this geometry; false (launching nothing) when
+// its grid does not fit.
+template <typename T, int KT, int KH, int KW, int ST, int SH, int SW, int TH>
+bool fwd_tile(const void* x, void* out, const Geom& g, cudaStream_t st) {
+  dim3 grid;
+  if (!fwd_tile_grid<TH>(g, &grid)) return false;
+  pool_fwd_tile<T, KT, KH, KW, ST, SH, SW, TH><<<grid, kThreads, 0, st>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), g);
+  return true;
+}
+
+// Compile-time instances of the tiled K1 for the pool geometries of S3D-G
+// (V = 4, 32-bit plans, a grid that fits), by (kernel, stride), with the
+// tile height TH; every other call takes the generic pool_fwd, and so does
+// every call of a build with RSP_POOL_GENERIC defined (chip_smoke.py times
+// the two).
 template <typename T>
 void fwd_dispatch(const Plan& pl, const void* x, void* out, const Geom& g,
                   cudaStream_t st) {
+#ifndef RSP_POOL_GENERIC
+  if (pl.vec4 && !pl.wide) {
+    if (geometry_is(g, 1, 3, 3, 1, 2, 2) &&
+        fwd_tile<T, 1, 3, 3, 1, 2, 2, 4>(x, out, g, st))
+      return;
+    if (geometry_is(g, 3, 3, 3, 1, 1, 1) &&
+        fwd_tile<T, 3, 3, 3, 1, 1, 1, 8>(x, out, g, st))
+      return;
+    if (geometry_is(g, 3, 3, 3, 2, 2, 2) &&
+        fwd_tile<T, 3, 3, 3, 2, 2, 2, 4>(x, out, g, st))
+      return;
+    if (geometry_is(g, 2, 2, 2, 2, 2, 2) &&
+        fwd_tile<T, 2, 2, 2, 2, 2, 2, 4>(x, out, g, st))
+      return;
+  }
+#endif
   if (pl.vec4) {
     if (pl.wide) fwd_t<T, 4, int64_t>(x, out, g, st);
     else fwd_t<T, 4, int32_t>(x, out, g, st);
@@ -481,19 +733,13 @@ int bwd_t(const void* x, const void* gout, void* dx, void* route,
   return (int)cudaGetLastError();
 }
 
-bool geometry_is(const Geom& g, int kt, int kh, int kw, int st, int sh,
-                 int sw) {
-  return g.kt == kt && g.kh == kh && g.kw == kw && g.st == st &&
-         g.sh == sh && g.sw == sw;
-}
-
 // Compile-time instances for the pool geometries of S3D-G (V = 4, 32-bit
 // plans); any other call takes the generic instance, and so does every call
-// of a build with RSP_K2_GENERIC defined (chip_smoke.py times the two).
+// of a build with RSP_POOL_GENERIC defined (chip_smoke.py times the two).
 template <typename T>
 int bwd_dispatch(const Plan& pl, const void* x, const void* gout, void* dx,
                  void* route, const Geom& g, cudaStream_t st) {
-#ifndef RSP_K2_GENERIC
+#ifndef RSP_POOL_GENERIC
   if (pl.vec4 && !pl.wide) {
     if (geometry_is(g, 1, 3, 3, 1, 2, 2))
       return bwd_t<T, 4, int32_t, 1, 3, 3, 1, 2, 2>(x, gout, dx, route, g, st);

@@ -23,9 +23,9 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "rspnet_tpu_torch"
 SOURCES = {"max_pool3d": "max_pool3d.cu", "color_augment": "color_augment.cu"}
 # libraries built from a source with extra nvcc flags: (source name, flags).
-# max_pool3d_generic sends every K2 call to the generic instance, so that
-# chip_smoke.py can time it against the compile-time instances.
-VARIANTS = {"max_pool3d_generic": ("max_pool3d", ["-DRSP_K2_GENERIC"])}
+# max_pool3d_generic sends every K1 and K2 call to the generic instance, so
+# that chip_smoke.py can time it against the compile-time instances.
+VARIANTS = {"max_pool3d_generic": ("max_pool3d", ["-DRSP_POOL_GENERIC"])}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -17,8 +17,12 @@ Pallas kernel took stride 1 only).
 
 On this card the least time of both directions is set by device-memory
 traffic: read x (and g), write out (or dx); the source says what holds
-each above it. The forward computes each output's whole window in one
-thread (one launch). The backward is two launches. Composed W -> H
+each above it. The forward is one launch: at S3D-G's four pool geometries
+a block copies each frame's input box for its output tile into shared
+memory once and takes the max along W, then H, then T (over the frames it
+has walked); any other call computes each output's whole window in one
+thread. Every max propagates NaN, as ``torch.maximum`` does. The
+backward is two launches. Composed W -> H
 -> T, the first-match rule sends each output's cotangent to one input, and
 a route pass writes that input's window offset as one byte per output
 element. A gather pass then gives each thread one input element, which
@@ -187,8 +191,10 @@ def _out_shape(shape, k, s, p):
                         zip(shape[1:4], k, s, p)), shape[4])
 
 
-def max_pool3d_fwd(x: torch.Tensor, k, s, p) -> torch.Tensor:
-    """K1: NDHWC max pool forward."""
+def max_pool3d_fwd(x: torch.Tensor, k, s, p, *,
+                   build: str = "max_pool3d") -> torch.Tensor:
+    """K1: NDHWC max pool forward. ``build`` names the kernel library
+    (``_build.VARIANTS``)."""
     k, s, p = _triple(k), _triple(s), _triple(p)
     check_geometry(x.shape, k, s, p)
     if not x.is_cuda:
@@ -196,7 +202,7 @@ def max_pool3d_fwd(x: torch.Tensor, k, s, p) -> torch.Tensor:
     _check_cuda(x, "max_pool3d_fwd")
     out = torch.empty(_out_shape(x.shape, k, s, p), dtype=x.dtype,
                       device=x.device)
-    lib = _build.library("max_pool3d")
+    lib = _build.library(build)
     shape_arr, kspec = _geometry_args(x.shape, k, s, p)
     err = lib.rsp_maxpool3d_fwd(_ptr(x), _ptr(out), _DTYPES[x.dtype],
                                 shape_arr, kspec, _stream())

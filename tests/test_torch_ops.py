@@ -4,7 +4,8 @@ Same numpy-seeded inputs through the JAX function and the port's function.
 On the CPU the port's kernel wrappers take their plain-torch versions (the
 CUDA kernels are held against those on the card by chip_smoke.py).
 
-- max pool: forward bit-equal to ``_max_pool3d_separable_rw``; gradient on
+- max pool: forward bit-equal to ``_max_pool3d_separable_rw``, NaN where
+  its window holds one, as there; gradient on
   unique values equal to ``jax.vjp`` of it; on ties equal to the first-match
   routings ``max_pool3d_pallas(..., interpret=True)`` (stride 1) and
   ``_make_max_pool3d_fm()`` (strided).
@@ -69,6 +70,24 @@ def test_pool_forward_bit_equal(ishape, k, s, p):
 
 
 @pytest.mark.parametrize("ishape,k,s,p", POOL_CASES)
+def test_pool_forward_nan_like_jax(ishape, k, s, p):
+    """A window holding a NaN pools to NaN, as in the JAX pool."""
+    k, s, p = _t3(k), _t3(s), _t3(p)
+    rng = np.random.RandomState(5)
+    x = rng.randn(2, *ishape).astype(np.float32)
+    x[rng.rand(*x.shape) < 0.03] = np.nan
+    for jdt, tdt in ((jnp.float32, torch.float32),
+                     (jnp.bfloat16, torch.bfloat16)):
+        ref = np.asarray(_max_pool3d_separable_rw(
+            jnp.asarray(x, jdt), k, s, p).astype(jnp.float32))
+        out = tmp.max_pool3d(torch.from_numpy(x).to(tdt), k, s, p)
+        out, nan = out.float().numpy(), np.isnan(ref)
+        assert nan.any()
+        np.testing.assert_array_equal(np.isnan(out), nan)
+        np.testing.assert_array_equal(out[~nan], ref[~nan])
+
+
+@pytest.mark.parametrize("ishape,k,s,p", POOL_CASES)
 def test_pool_gradient_unique_values(ishape, k, s, p):
     k, s, p = _t3(k), _t3(s), _t3(p)
     rng = np.random.RandomState(1)
@@ -110,19 +129,24 @@ def test_pool_cpu_path_launches_no_kernel():
 
 
 def test_pool_generic_build_takes_the_same_source():
-    """The build chip_smoke.py times K2's generic instance with: the same
-    source under a define that turns the compile-time instances off."""
+    """The build chip_smoke.py times the K1 and K2 generic instances with:
+    the same source under a define that turns the compile-time instances
+    off."""
     from rspnet_tpu_torch.ops import _build
     src, flags = _build._source("max_pool3d_generic")
     assert src == _build._source("max_pool3d")[0]
-    assert flags == [*_build.NVCC_FLAGS, "-DRSP_K2_GENERIC"]
-    assert "#ifndef RSP_K2_GENERIC" in src.read_text()
+    assert flags == [*_build.NVCC_FLAGS, "-DRSP_POOL_GENERIC"]
+    # one guard in front of K1's instances, one in front of K2's
+    assert src.read_text().count("#ifndef RSP_POOL_GENERIC") == 2
     assert (_build._lib_path("max_pool3d_generic")
             != _build._lib_path("max_pool3d"))
     x, g = torch.randn(1, 4, 6, 6, 4), torch.randn(1, 4, 6, 6, 4)
     assert torch.equal(
         tmp.max_pool3d_bwd(x, g, 3, 1, 1, build="max_pool3d_generic"),
         tmp.max_pool3d_bwd_plain(x, g, 3, 1, 1))
+    assert torch.equal(
+        tmp.max_pool3d_fwd(x, 3, 1, 1, build="max_pool3d_generic"),
+        tmp.max_pool3d_fwd_plain(x, 3, 1, 1))
 
 
 def test_pool_rejects_unsupported_geometry():
