@@ -12,17 +12,23 @@ Phases, each printing its own lines:
      and at small shapes no site has (the generic instances, the
      one-channel path, the compile-time instances at other paddings and
      planes), f32 and bf16, with and without ties, both
-     bit-equal; K1 (its tiled and generic instances) on inputs that hold
-     NaN, NaN where the plain version has NaN and bit-equal elsewhere;
-     K1/K2 on two tensors of over 2^31 elements (the 64-bit
-     index plans); K3 (colour augment) over all 24
-     op orders x gray on/off x flip on/off x gray before/after, uint8 and
-     f32 input, at [8, 32, 224, 224, 3];
+     bit-equal; K1/K2 (both builds) on inputs that hold NaN and -inf, and
+     K2 on inputs whose corner windows are all -inf, NaN where the plain
+     version has NaN and bit-equal elsewhere; K1/K2 on two tensors of over
+     2^31 elements (the 64-bit index plans); K3 (colour augment) over all
+     24 op orders x gray on/off x flip on/off x gray before/after, uint8
+     and f32 input, at [8, 32, 224, 224, 3], at the main path's batch 64,
+     at four ragged shapes, at a clip too large for the resident instance
+     (the generic one takes it) and through the color_augment_generic
+     build; two K3 calls at the main shapes bit-identical;
   3. timing with CUDA events at the main path's shapes, beside the bound,
      the plain version and the library; K1/K2 are also held bit-equal to
      their plain versions there (K1 at the fused key pass's batch 128
      too), and their compile-time instances are timed against their
-     generic instances (the max_pool3d_generic build);
+     generic instances (the max_pool3d_generic build); K3's resident
+     instance against its generic one (the color_augment_generic build),
+     u8 and f32, with its grid, and where its time goes clip by clip (the
+     color_augment_timeline build, ``ops/k3_timeline.py``);
   4. the main path: ``rspnet_tpu_torch.pretrain.main`` on
      config/pretrain/s3dg.jsonnet with synthetic data and device geometry,
      3 steps (``-d``), counting kernel launches.
@@ -101,6 +107,15 @@ NAN_POOL_SITES = ("maxPool1", "sepInc_3b.branch3", "maxPool_sepInc_4b",
                   "tile.branch3_p0", "tile.stem_odd")
 GENERIC = "max_pool3d_generic"   # the build without compile-time instances
 K3_TOL = 1e-4
+COLOR_CLIP = (32, 224, 224)     # [T, H, W] of a K3 clip on the main path
+# (batch, [T, H, W]) of K3 checks off the main path's shape: rows that are
+# not multiples of 16 bytes (W % 4 != 0, and u8 rows of 60 bytes), a
+# tensor whose byte count is no multiple of 16, a ragged last CTA (371
+# rows on 132 or 264 CTAs) and CTAs with no rows
+RAGGED_COLOR = [(5, (7, 9, 13)), (3, (3, 100, 101)), (3, (7, 53, 101)),
+                (4, (5, 9, 20))]
+# a clip whose slices do not fit the co-resident grid: the generic instance
+LARGE_COLOR = (2, (64, 480, 640))
 MAIN_BATCH = 64                # batch_size of config/pretrain/s3dg.jsonnet
 
 
@@ -190,33 +205,54 @@ def check_pool(dev, batch: int):
 
 
 def check_pool_nan(dev, batch: int) -> None:
-    """K1 (default and generic builds) on inputs with NaN and -inf cells:
-    the NaN masks equal the plain version's, the other values are
-    bit-equal."""
+    """K1 and K2 (default and generic builds) on inputs with NaN and -inf
+    cells, and K2 on inputs whose corner windows are all -inf: the NaN
+    masks equal the plain version's, the other values are bit-equal."""
     import torch
     from rspnet_tpu_torch.ops import max_pool3d as mp
+
+    def same(out, ref):
+        nan = torch.isnan(ref)
+        return (torch.equal(torch.isnan(out), nan)
+                and torch.equal(out[~nan], ref[~nan])), int(nan.sum())
 
     gen = torch.Generator(device=dev).manual_seed(5)
     sites = {name: rest for name, *rest in POOL_SITES + EXTRA_POOL_SITES}
     for name in NAN_POOL_SITES:
         shape4, k, s, p = sites[name]
         for dtype in (torch.float32, torch.bfloat16):
-            x = torch.randn((batch, *shape4), generator=gen, device=dev)
-            u = torch.rand(x.shape, generator=gen, device=dev)
-            x = x.masked_fill(u < 0.01, float("nan"))
-            x = x.masked_fill((u >= 0.01) & (u < 0.02), float("-inf"))
-            x = x.to(dtype)
-            ref = mp.max_pool3d_fwd_plain(x, k, s, p)
-            nan = torch.isnan(ref)
-            for build in ("max_pool3d", GENERIC):
-                out = mp.max_pool3d_fwd(x, k, s, p, build=build)
-                ok = (torch.equal(torch.isnan(out), nan)
-                      and torch.equal(out[~nan], ref[~nan]))
-                print(f"check K1 NaN {name:20s} {str(dtype):15s} {build:18s}"
-                      f" nan outputs {int(nan.sum())}/{nan.numel()} "
-                      f"same NaN mask and values {ok}", flush=True)
-                require(ok, f"K1 {name} {dtype} {build}: NaN input differs "
-                            f"from the plain version")
+            for case in ("nan", "edge"):
+                x = torch.randn((batch, *shape4), generator=gen, device=dev)
+                if case == "nan":       # 1% NaN, 1% -inf
+                    u = torch.rand(x.shape, generator=gen, device=dev)
+                    x = x.masked_fill(u < 0.01, float("nan"))
+                    x = x.masked_fill((u >= 0.01) & (u < 0.02),
+                                      float("-inf"))
+                else:                   # all -inf windows at both corners
+                    x[:, :k[0], :k[1], :k[2]] = float("-inf")
+                    x[:, -k[0]:, -k[1]:, -k[2]:] = float("-inf")
+                x = x.to(dtype)
+                ref = mp.max_pool3d_fwd_plain(x, k, s, p)
+                g = torch.randn(ref.shape, generator=gen,
+                                device=dev).to(dtype)
+                dref = mp.max_pool3d_bwd_plain(x, g, k, s, p)
+                # the cotangent the plain version drops (NaN and pad routes)
+                dropped = float(g.double().sum() - dref.double().sum())
+                for build in ("max_pool3d", GENERIC):
+                    ok_f, n_f = (same(mp.max_pool3d_fwd(x, k, s, p,
+                                                        build=build), ref)
+                                 if case == "nan" else (True, 0))
+                    ok_b, n_b = same(mp.max_pool3d_bwd(x, g, k, s, p,
+                                                       build=build), dref)
+                    print(f"check K1/K2 {case:4s} {name:20s} {str(dtype):15s}"
+                          f" {build:18s} fwd nan {n_f}/{ref.numel()} same "
+                          f"{ok_f} | bwd nan {n_b}, dropped g sum "
+                          f"{dropped:.4g}, same NaN mask and values {ok_b}",
+                          flush=True)
+                    require(ok_f and ok_b,
+                            f"K1/K2 {case} {name} {dtype} {build}: differs "
+                            f"from the plain version (fwd {ok_f}, bwd "
+                            f"{ok_b})")
 
 
 def check_pool_wide(dev) -> None:
@@ -249,9 +285,38 @@ def check_pool_wide(dev) -> None:
         torch.cuda.empty_cache()
 
 
-def check_color(dev, batch: int, frames: int, size: int) -> float:
+def _color_args(rng, n):
+    import numpy as np
+    return np.stack([rng.uniform(0.6, 1.4, n), rng.uniform(0.6, 1.4, n),
+                     rng.uniform(0.6, 1.4, n), rng.uniform(-0.4, 0.4, n)],
+                    1).astype(np.float32)
+
+
+def _color_input(gen, dev, shape, in_u8: bool):
+    import torch
+    if in_u8:
+        return torch.randint(0, 256, shape, generator=gen, device=dev,
+                             dtype=torch.uint8)
+    return torch.rand(shape, generator=gen, device=dev)
+
+
+def color_plan_line(shape, in_u8: bool, build: str = "color_augment") -> str:
+    from rspnet_tpu_torch.ops import color_augment as ca
+    p = ca.launch_plan(shape, in_u8, build=build)
+    if not p["resident"]:
+        return f"generic instance, {p['ctas']} blocks per clip"
+    return (f"resident instance, {p['ctas']} CTAs ({p['ctas_per_sm']} per "
+            f"SM), {p['rows_per_cta']} rows per CTA in {p['chunks']} chunks "
+            f"of {p['rows_per_chunk']}, a ring of {p['slots']} slots, "
+            f"{p['smem_bytes']} B shared memory")
+
+
+def check_color(dev, batch: int, clip, resident: bool = True,
+                build: str = "color_augment") -> float:
     """K3 vs plain over every order x gray x flip x gray-before, u8 and f32
-    input; returns the largest abs error on the normalized output."""
+    input, on clips [T, H, W] in batches of ``batch``; the instance the
+    plan takes must be the resident one iff ``resident``. Returns the
+    largest abs error on the normalized output."""
     import itertools
 
     import numpy as np
@@ -263,8 +328,14 @@ def check_color(dev, batch: int, frames: int, size: int) -> float:
     rng = np.random.default_rng(0)
     gen = torch.Generator(device=dev).manual_seed(1)
     worst = 0.0
-    for gray_first in (True, False):
-        for in_u8 in (True, False):
+    for in_u8 in (True, False):
+        shape = (batch, *clip, 3)
+        plan = ca.launch_plan(shape, in_u8, build=build)
+        line = color_plan_line(shape, in_u8, build)
+        require(bool(plan["resident"]) == resident,
+                f"K3 {build} {list(shape)} u8={in_u8}: {line}, expected the "
+                f"{'resident' if resident else 'generic'} instance")
+        for gray_first in (True, False):
             err_case = 0.0
             for lo in range(0, len(combos), batch):
                 part = combos[lo:lo + batch]
@@ -272,30 +343,52 @@ def check_color(dev, batch: int, frames: int, size: int) -> float:
                 order = np.asarray([c[0] for c in part], np.int32)
                 gray = np.asarray([c[1] for c in part])
                 flip = np.asarray([c[2] for c in part])
-                factors = np.stack([rng.uniform(0.6, 1.4, n),
-                                    rng.uniform(0.6, 1.4, n),
-                                    rng.uniform(0.6, 1.4, n),
-                                    rng.uniform(-0.4, 0.4, n)],
-                                   1).astype(np.float32)
-                shape = (n, frames, size, size, 3)
-                if in_u8:
-                    x = torch.randint(0, 256, shape, generator=gen,
-                                      device=dev, dtype=torch.uint8)
-                else:
-                    x = torch.rand(shape, generator=gen, device=dev)
+                x = _color_input(gen, dev, (n, *clip, 3), in_u8)
                 kw = dict(mean=(0.485, 0.456, 0.406),
                           std=(0.229, 0.224, 0.225),
                           gray_before_jitter=gray_first)
-                out = ca.color_augment(x, order, factors, gray, flip, **kw)
+                factors = _color_args(rng, n)
+                out = ca.color_augment(x, order, factors, gray, flip,
+                                       build=build, **kw)
                 ref = ca.color_augment_plain(x, order, factors, gray, flip,
                                              **kw)
                 err_case = max(err_case, float((out - ref).abs().max()))
-            print(f"check K3 gray_before={gray_first!s:5} "
-                  f"input={'u8' if in_u8 else 'f32'} max_abs_err="
-                  f"{err_case:.3g} (limit {K3_TOL})", flush=True)
+                del x, out, ref
+            print(f"check K3 {build} [{batch},{','.join(map(str, clip))},3] "
+                  f"gray_before={gray_first!s:5} input="
+                  f"{'u8' if in_u8 else 'f32'} max_abs_err={err_case:.3g} "
+                  f"(limit {K3_TOL}); {line}", flush=True)
             require(err_case <= K3_TOL, f"K3 error {err_case} > {K3_TOL}")
             worst = max(worst, err_case)
+    torch.cuda.empty_cache()
     return worst
+
+
+def check_color_repeat(dev, batch: int, clip) -> None:
+    """Two K3 calls on the same inputs give the same bits (the clip mean is
+    summed in a fixed order, no atomics on floats)."""
+    import numpy as np
+    import torch
+    from rspnet_tpu_torch.ops import color_augment as ca
+
+    rng = np.random.default_rng(7)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    order = np.stack([rng.permutation(4) for _ in range(batch)]).astype(
+        np.int32)
+    gray, flip = rng.random(batch) < 0.5, rng.random(batch) < 0.5
+    factors = _color_args(rng, batch)
+    kw = dict(mean=(0.485, 0.456, 0.406), std=(0.229, 0.224, 0.225))
+    for in_u8 in (False, True):
+        x = _color_input(gen, dev, (batch, *clip, 3), in_u8)
+        a = ca.color_augment(x, order, factors, gray, flip, **kw)
+        b = ca.color_augment(x, order, factors, gray, flip, **kw)
+        same = torch.equal(a, b)
+        print(f"check K3 repeat [{batch},{','.join(map(str, clip))},3] "
+              f"input={'u8' if in_u8 else 'f32'}: two calls bit-identical "
+              f"{same}", flush=True)
+        require(same, "K3: two calls on the same inputs differ")
+        del x, a, b
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -407,40 +500,68 @@ def time_pool(dev, batch: int) -> dict:
     return tot
 
 
+def ptxas_lines(log: str, entry: str):
+    """ptxas's register and spill lines of the entry functions whose
+    mangled names hold ``entry``."""
+    out, name = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line
+        elif name and entry in name and ("registers" in line
+                                         or "spill" in line):
+            out.append(f"{name[-40:]}: {line.strip()}")
+    return out
+
+
 def time_color(dev, batch: int, frames: int, size: int) -> dict:
+    """K3's resident instance, its generic instance (the
+    color_augment_generic build) and the plain version at the main path's
+    shapes, f32 and u8 input, beside the bound."""
     import numpy as np
     import torch
+    from rspnet_tpu_torch.ops import _build
     from rspnet_tpu_torch.ops import color_augment as ca
+
+    for line in ptxas_lines(_build.build_logs.get("color_augment", ""),
+                            "augment_resident"):
+        print(f"ptxas K3 resident {line}", flush=True)
 
     rng = np.random.default_rng(3)
     order = np.stack([rng.permutation(4) for _ in range(batch)]).astype(
         np.int32)
-    factors = np.stack([rng.uniform(0.6, 1.4, batch),
-                        rng.uniform(0.6, 1.4, batch),
-                        rng.uniform(0.6, 1.4, batch),
-                        rng.uniform(-0.4, 0.4, batch)], 1).astype(np.float32)
+    factors = _color_args(rng, batch)
     gray = rng.random(batch) < 0.2
     flip = np.zeros(batch, bool)
     x = torch.rand((batch, frames, size, size, 3), device=dev)
     kw = dict(mean=(0.485, 0.456, 0.406), std=(0.229, 0.224, 0.225),
               gray_before_jitter=True)
-    t = time_ms(lambda: ca.color_augment(x, order, factors, gray, flip, **kw))
-    tp = time_ms(lambda: ca.color_augment_plain(x, order, factors, gray, flip,
-                                                **kw), 1, 1)
-    npix = batch * frames * size * size
-    # f32 operations per pixel: the chain once up to contrast (pass 1, on
-    # average half of it) and once whole (pass 2), with the hue round trip
-    # ~45, the blends ~8 each, luma 5 and the normalize 6
-    ops = npix * 1.5 * (45 + 3 * 8 + 5 + 6)
-    b, by = bound(x.numel() * 4 * 2, ops)
-    print(f"time K3 [{batch},{frames},{size},{size},3] f32 in: {t:.4f} ms "
-          f"(bound {b:.4f} by {by}, plain {tp:.2f})", flush=True)
-    xu = (x * 255).to(torch.uint8)
-    tu = time_ms(lambda: ca.color_augment(xu, order, factors, gray, flip,
-                                          **kw))
-    print(f"time K3 [{batch},{frames},{size},{size},3] u8 in: {tu:.4f} ms",
-          flush=True)
-    return {"ms": t, "plain_ms": tp, "bound_ms": b, "bound_by": by}
+    res = {}
+    for name, xin in (("f32", x), ("u8", (x * 255).to(torch.uint8))):
+        def run(build):
+            return ca.color_augment(xin, order, factors, gray, flip,
+                                    build=build, **kw)
+        t = time_ms(lambda: run("color_augment"), 20, 3)
+        tg = time_ms(lambda: run("color_augment_generic"), 20, 3)
+        t2 = time_ms(lambda: run("color_augment"), 20, 3)
+        tp = time_ms(lambda: ca.color_augment_plain(xin, order, factors,
+                                                    gray, flip, **kw), 1, 1)
+        # the function's operations: the chain once per pixel (the hue
+        # round trip ~45, the blends ~8 each, luma 5, the normalize 6)
+        ops = x.numel() / 3 * (45 + 3 * 8 + 5 + 6)
+        b, by = bound(xin.numel() * xin.element_size() + x.numel() * 4, ops)
+        print(f"time K3 [{batch},{frames},{size},{size},3] {name} in: "
+              f"{t:.4f} ms (again {t2:.4f}, generic instance {tg:.4f}, "
+              f"bound {b:.4f} by {by}, plain {tp:.2f}); "
+              f"{color_plan_line(tuple(xin.shape), name == 'u8')}",
+              flush=True)
+        res[name] = {"ms": t, "again_ms": t2, "generic_ms": tg,
+                     "plain_ms": tp, "bound_ms": b, "bound_by": by}
+        del xin
+    del x
+    torch.cuda.empty_cache()
+    f = res["f32"]
+    return {"ms": f["ms"], "plain_ms": f["plain_ms"],
+            "bound_ms": f["bound_ms"], "bound_by": f["bound_by"]}
 
 
 # ---------------------------------------------------------------------------
@@ -500,7 +621,8 @@ def main_path(batch: int, profile: bool = False) -> dict:
 _KERNEL_GROUPS = [
     # pool_fwd also matches K1's tiled instances, pool_fwd_tile<...>
     ("K1/K2 max pool", ("pool_fwd", "pool_route", "pool_gather")),
-    ("K3 colour augment", ("luma_partials", "apply_chain")),
+    ("K3 colour augment", ("augment_resident", "luma_partials",
+                           "apply_chain")),
     ("batch norm", ("batch_norm", "batchnorm", "bn_")),
     ("convolution", ("conv", "cudnn", "xmma", "implicit", "wgrad", "dgrad",
                      "fprop", "nchw", "nhwc")),
@@ -580,7 +702,8 @@ def main(argv=None) -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(k in line for k in ("entry function", "registers",
+                                        "spill")):
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -588,11 +711,21 @@ def main(argv=None) -> int:
     err_fwd, err_bwd = check_pool(dev, batch=4)                   # phase 2
     check_pool_nan(dev, batch=4)
     check_pool_wide(dev)
-    err_color = check_color(dev, batch=8, frames=32, size=224)
+    err_color = max(
+        check_color(dev, 8, COLOR_CLIP),
+        check_color(dev, MAIN_BATCH, COLOR_CLIP),
+        *(check_color(dev, b, clip) for b, clip in RAGGED_COLOR),
+        check_color(dev, *LARGE_COLOR, resident=False),
+        check_color(dev, 8, COLOR_CLIP, resident=False,
+                    build="color_augment_generic"))
+    check_color_repeat(dev, MAIN_BATCH, COLOR_CLIP)
 
     check_pool_fwd(dev, batch=2 * MAIN_BATCH)                     # phase 3
     pool = time_pool(dev, batch=MAIN_BATCH)
     color = time_color(dev, batch=MAIN_BATCH, frames=32, size=224)
+    torch.cuda.empty_cache()
+    from rspnet_tpu_torch.ops import k3_timeline
+    k3_timeline.main(["--batch", str(MAIN_BATCH)])
     torch.cuda.empty_cache()
 
     launches = main_path(MAIN_BATCH, args.profile)["launches"]    # phase 4

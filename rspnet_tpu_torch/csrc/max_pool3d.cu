@@ -60,12 +60,11 @@
 //   both passes map a block to a 2 x 2 x 4 pixel tile (neighbours share
 //   L1), and are compiled with the window and strides as constants for the
 //   four pool geometries of S3D-G (a generic instance takes the rest).
-//   Deviation: a window whose in-bounds cells are all -inf routes to an
-//   in-bounds cell; the plain version, padding with -inf, may route it to a
-//   pad cell (its gradient is then dropped). Inputs after a ReLU never hit
-//   this. Deviation: the route's strict > never picks a NaN cell, so a
-//   window holding a NaN sends its cotangent to its largest number; the
-//   plain version matches no cell of such a window and drops it.
+//   A window routes to no cell, and its cotangent is dropped, as the JAX
+//   kernel and the plain version drop it, in two cases: (a) it holds a NaN
+//   (its max is NaN, which equals no cell); (b) its max is -inf and its
+//   offset-0 cell lies in the -inf padding, which is then the first match.
+//   Such a route is the byte kNoRouteByte, which the gather never matches.
 // - Index arithmetic is 32-bit whenever the tensors allow it (64-bit integer
 //   division is a long software sequence on the card); the forward's
 //   grid-stride loop counter stays 64-bit so it cannot wrap.
@@ -367,7 +366,9 @@ __device__ __forceinline__ void store_route(uint8_t* p, const int* r) {
   }
 }
 
-// A route word that matches no code (codes are < 27; bit 7 stays clear).
+// A route byte, and word, that matches no code (codes are < 27; bit 7 stays
+// clear).
+constexpr int kNoRouteByte = 0x7F;
 constexpr uint32_t kNoRoute = 0x7F7F7F7Fu;
 
 // 0x80 in byte l of the result where lane l of the word routes to code.
@@ -436,18 +437,17 @@ __device__ __forceinline__ Pos<I> tile_pos(int T, int H, int W, int cv_n) {
   const int kw = KW ? KW : g.kw, st = ST ? ST : g.st;              \
   const int sh = SH ? SH : g.sh, sw = SW ? SW : g.sw;
 
-// The first d < k with in[d] (every window has an in-bounds cell).
-__device__ __forceinline__ int first_in(const bool* in) {
-  return in[0] ? 0 : in[1] ? 1 : 2;
-}
-
 // K2 pass 1. route[b, to, ho, wo, c..c+V) = dt*9 + dh*3 + dw of the first
-// in-bounds window cell, in (dw, dh, dt) order, that holds the window max:
-// the scan starts at the first in-bounds cell and moves only to strictly
-// greater values (so a window of -inf keeps that cell). Capped at 32
-// registers (8 blocks per SM): the window loads need threads in flight more
-// than registers, and the cap measured faster on the card despite a few
-// spilled words in the (3,3,3) and generic instances.
+// window cell, in (dw, dh, dt) order, that holds the window max, with the
+// -inf padding counted as cells: the scan starts at offset 0 (kNoRouteByte
+// when that cell is padding) and moves only to strictly greater values, so
+// a window of -inf keeps its start. A lane whose window holds a NaN routes
+// to kNoRouteByte: beside the scan it sums |v|, which is NaN exactly when a
+// NaN was added (one full-rate add a cell; a NaN-propagating max beside
+// the scan made K2 25% slower on the card). Capped at 32 registers (8
+// blocks per SM): the window loads need threads in flight more than
+// registers, and the cap measured faster on the card despite a few spilled
+// words in the (3,3,3) and generic instances.
 template <typename T, int V, typename I, RSP_K2_PARAMS>
 __global__ void __launch_bounds__(kThreads, 8)
     pool_route(const T* __restrict__ x, uint8_t* __restrict__ route,
@@ -466,12 +466,14 @@ __global__ void __launch_bounds__(kThreads, 8)
   }
   const I row = (I)g.W * g.C, frame = (I)g.H * row;
   const T* clip = x + q.b * g.T * frame + q.v * V;
-  float m[V], v[V];
+  float m[V], v[V], nan_sum[V];
   int best[V];
+  const int start = in_t[0] && in_h[0] && in_w[0] ? 0 : kNoRouteByte;
 #pragma unroll
   for (int l = 0; l < V; ++l) {
     m[l] = -CUDART_INF_F;
-    best[l] = first_in(in_t) * 9 + first_in(in_h) * 3 + first_in(in_w);
+    nan_sum[l] = 0.0f;
+    best[l] = start;
   }
 #pragma unroll
   for (int dw = 0; dw < 3; ++dw) {
@@ -488,11 +490,15 @@ __global__ void __launch_bounds__(kThreads, 8)
             m[l] = v[l];
             best[l] = dt * 9 + dh * 3 + dw;
           }
+          nan_sum[l] += fabsf(v[l]);
         }
       }
     }
   }
   const I idx = (((q.b * g.To + q.t) * g.Ho + q.h) * g.Wo + q.w) * cv_n + q.v;
+#pragma unroll
+  for (int l = 0; l < V; ++l)
+    if (nan_sum[l] != nan_sum[l]) best[l] = kNoRouteByte;
   store_route<V>(route + idx * V, best);
 }
 

@@ -24,16 +24,21 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "rspnet_tpu_torch"
 SOURCES = {"max_pool3d": "max_pool3d.cu", "color_augment": "color_augment.cu"}
 # libraries built from a source with extra nvcc flags: (source name, flags).
 # max_pool3d_generic sends every K1 and K2 call to the generic instance, so
-# that chip_smoke.py can time it against the compile-time instances.
-VARIANTS = {"max_pool3d_generic": ("max_pool3d", ["-DRSP_POOL_GENERIC"])}
+# that chip_smoke.py can time it against the compile-time instances;
+# color_augment_generic sends every K3 call to its two-pass generic
+# instance, to be timed against the resident one; color_augment_timeline
+# stamps the resident instance's phases (ops/k3_timeline.py).
+VARIANTS = {"max_pool3d_generic": ("max_pool3d", ["-DRSP_POOL_GENERIC"]),
+            "color_augment_generic": ("color_augment", ["-DRSP_K3_GENERIC"]),
+            "color_augment_timeline": ("color_augment",
+                                       ["-DRSP_K3_TIMELINE"])}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
-# argtypes of every C entry point (all return an int: cudaGetLastError()
-# or, for *_nblocks, a count)
+# argtypes of every C entry point (all return an int: 0 or a CUDA error)
 PROTOTYPES = {
     "max_pool3d": {
         "rsp_maxpool3d_fwd": [_P, _P, _I, ctypes.POINTER(_I64),
@@ -42,10 +47,12 @@ PROTOTYPES = {
                               ctypes.POINTER(_I), _P],
     },
     "color_augment": {
-        "rsp_color_augment_nblocks": [_I64],
+        "rsp_color_augment_plan": [_I64, _I64, _I64, _I64, _I, _I,
+                                   ctypes.POINTER(_I)],
         "rsp_color_augment": [_P, _I, _P, _P, _P, _P, _P, _I64, _I64, _I64,
                               _I64, _I, ctypes.POINTER(ctypes.c_float),
-                              ctypes.POINTER(ctypes.c_float), _P],
+                              ctypes.POINTER(ctypes.c_float),
+                              ctypes.POINTER(_I), _P],
     },
 }
 

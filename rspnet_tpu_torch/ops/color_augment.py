@@ -1,7 +1,7 @@
 """Fused colour augment: CUDA kernel K3 and its plain-torch version.
 
 Replaces rspnet_tpu/ops/pallas_augment.py:_kernel (:51, launched by
-``fused_color_augment`` :176). Per clip of an NDHWC batch: uint8 -> [0, 1]
+``fused_color_augment`` :209). Per clip of an NDHWC batch: uint8 -> [0, 1]
 (or float input as it comes from ``augment.crop_resize``), optional
 horizontal flip of the input, grayscale before or after the jitter,
 brightness / contrast / saturation / hue in the clip's own op order (contrast
@@ -9,21 +9,32 @@ against the clip mean of luma at that point of the chain), per-channel
 normalize; float32 out. The formulas are those of ``color.py``; the hue
 channel is picked by the pairwise ``>=`` chain.
 
-On this card the kernel is bound by device-memory traffic: read the input
-once, write f32 once. A clip does not fit in shared memory, and contrast is
-the only op that needs a reduction, so the kernel makes two passes: pass 1
-recomputes the chain up to contrast and writes one partial luma sum per
-block; pass 2 reduces the clip's partials in a fixed order and applies the
-whole chain and the normalize. No atomics; f32 throughout (the Pallas
-kernel's bf16 was a VMEM workaround). See ``csrc/color_augment.cu``.
+On this card the kernel is bound by bytes: one read of the input and one
+f32 write, 0.736 ms at the main path's f32 [64, 32, 224, 224, 3]. The
+Pallas kernel held one clip in VMEM; the resident instance holds one clip
+in the shared memory of the whole card, which is how it reads the input
+once. One cooperative launch of as many CTAs as can be co-resident walks
+the batch; each CTA copies its whole rows of a clip into shared memory
+(bulk copies), runs the chain up to contrast there in place and posts one
+luma partial as a flagged word; CTA 0 sums the partials in a fixed order
+(the same mean in every CTA and every run; no atomics on floats) and posts
+the mean; then every CTA runs the rest of the chain from shared memory and
+writes the output, while the next clip's rows load into the slots it has
+consumed and into the spare slots of its ring. A clip whose slices do not
+fit, or an input that is not 16-byte aligned, takes the generic instance:
+two launches that read the input twice. ``launch_plan`` says which
+instance and grid a call takes; the ``color_augment_generic`` build sends
+every call to the generic instance, and ``k3_timeline`` stamps the resident
+instance's phases. See ``csrc/color_augment.cu``.
 
 A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel or
-raises.
+raises (a refused cooperative launch raises too).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+import functools
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +43,11 @@ from . import _build, color
 
 launches = {"color_augment": 0}
 plain_cuda_calls = {"color_augment": 0}
+
+# rsp_color_augment_plan's fields, in order
+PLAN_KEYS = ("resident", "ctas", "ctas_per_sm", "rows_per_cta",
+             "rows_per_chunk", "chunks", "slots", "slot_bytes",
+             "state_offset", "smem_bytes")
 
 _OPS = (color.adjust_brightness, color.adjust_contrast,
         color.adjust_saturation, color.adjust_hue)
@@ -82,10 +98,12 @@ def color_augment_plain(x: torch.Tensor, order, factors, gray, flip, *,
 
 def color_augment(x: torch.Tensor, order, factors, gray, flip, *,
                   mean: Sequence[float], std: Sequence[float],
-                  gray_before_jitter: bool = True) -> torch.Tensor:
+                  gray_before_jitter: bool = True,
+                  build: str = "color_augment") -> torch.Tensor:
     """K3. x: [B,T,H,W,3] uint8 or float32 NDHWC; order [B,4] permutation
     of (brightness, contrast, saturation, hue); factors [B,4]; gray, flip
-    [B] bool. Returns normalized float32 [B,T,H,W,3]."""
+    [B] bool. Returns normalized float32 [B,T,H,W,3]. ``build`` names the
+    kernel library (``_build.VARIANTS``)."""
     if not x.is_cuda:
         return color_augment_plain(x, order, factors, gray, flip, mean=mean,
                                    std=std,
@@ -99,20 +117,58 @@ def color_augment(x: torch.Tensor, order, factors, gray, flip, *,
         raise ValueError("color_augment: each order row must permute 0..3")
     B, T, H, W, _ = x.shape
     dev = x.device
-    order_d = torch.from_numpy(order_h).to(dev)
-    factors_d = torch.from_numpy(factors_h).to(dev)
-    flags_d = torch.from_numpy(np.stack([gray_h, flip_h], 1).astype(
-        np.int32)).to(dev)
-    lib = _build.library("color_augment")
-    nblocks = lib.rsp_color_augment_nblocks(T * H * W)
-    partials = torch.empty((B, nblocks), dtype=torch.float32, device=dev)
+    # order [B, 4], factors [B, 4] and flags [B, 2] in one copy from pinned
+    # memory, which does not wait for the stream as a pageable copy does
+    args = torch.from_numpy(np.concatenate([
+        order_h.ravel(), factors_h.ravel().view(np.int32),
+        np.stack([gray_h, flip_h], 1).astype(np.int32).ravel()])
+    ).pin_memory().to(dev, non_blocking=True)
+    order_p = args.data_ptr()
+    factors_p, flags_p = order_p + 16 * B, order_p + 32 * B
+    in_u8 = x.dtype == torch.uint8
+    plan = launch_plan(tuple(x.shape), in_u8, x.data_ptr() % 16 == 0,
+                       build=build, device=dev.index or 0)
+    # 64-bit words, zero at launch: the resident instance's flagged partials
+    # [B, ctas] and clip means [B] (the generic one's partials fit in them)
+    partials = torch.zeros(B * (plan["ctas"] + 1), dtype=torch.int64,
+                           device=dev)
     out = torch.empty(x.shape, dtype=torch.float32, device=dev)
-    err = lib.rsp_color_augment(
-        x.data_ptr(), int(x.dtype == torch.uint8), out.data_ptr(),
-        order_d.data_ptr(), factors_d.data_ptr(), flags_d.data_ptr(),
-        partials.data_ptr(), B, T, H, W, int(gray_before_jitter),
+    err = _build.library(build).rsp_color_augment(
+        x.data_ptr(), int(in_u8), out.data_ptr(), order_p, factors_p,
+        flags_p, partials.data_ptr(), B, T, H, W, int(gray_before_jitter),
         (ctypes.c_float * 3)(*mean), (ctypes.c_float * 3)(*std),
+        (ctypes.c_int * len(PLAN_KEYS))(*plan.values()),
         torch.cuda.current_stream().cuda_stream)
     _build.check(err, "rsp_color_augment")
     launches["color_augment"] += 1
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(build: str, shape: Tuple[int, ...], in_u8: bool, aligned: bool,
+          device: int) -> Tuple[int, ...]:
+    B, T, H, W, _ = shape
+    plan = (ctypes.c_int * len(PLAN_KEYS))()
+    with torch.cuda.device(device):
+        _build.check(_build.library(build).rsp_color_augment_plan(
+            B, T, H, W, int(in_u8), int(aligned), plan),
+            "rsp_color_augment_plan")
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+    p = dict(zip(PLAN_KEYS, plan))
+    # the resident grid must hold a whole clip and be co-resident: as many
+    # CTAs as the occupancy query lets run on every SM at once
+    if p["resident"] and not (p["ctas"] == p["ctas_per_sm"] * sms
+                              and p["ctas"] * p["rows_per_cta"] >= T * H):
+        raise RuntimeError(f"color_augment: bad resident plan {p} for "
+                           f"{shape} on {sms} SMs")
+    return tuple(plan)
+
+
+def launch_plan(shape: Sequence[int], in_u8: bool, aligned: bool = True, *,
+                build: str = "color_augment", device: int = 0
+                ) -> Dict[str, int]:
+    """The instance and grid K3 takes for a [B, T, H, W, 3] input on the
+    card (``PLAN_KEYS``): ``resident`` 1 or 0 (the generic instance);
+    ``aligned``: the input's address is a multiple of 16."""
+    return dict(zip(PLAN_KEYS, _plan(build, tuple(int(d) for d in shape),
+                                     bool(in_u8), bool(aligned), device)))

@@ -121,6 +121,35 @@ def test_pool_gradient_ties_first_match(ishape, k, s, p):
     np.testing.assert_allclose(got.sum(), g.sum(), rtol=1e-5)
 
 
+@pytest.mark.parametrize("ishape,k,p", [
+    ((4, 5, 5, 2), (3, 3, 3), (1, 1, 1)),
+    ((8, 14, 14, 6), (3, 3, 3), (1, 1, 1)),
+    ((5, 9, 11, 4), (3, 3, 3), (0, 0, 0)),
+    ((4, 6, 6, 3), (1, 3, 3), (0, 1, 1)),
+])
+def test_pool_gradient_nan_and_neginf_like_pallas(ishape, k, p):
+    """Windows that hold a NaN, and all -inf windows whose offset-0 cell is
+    padding, drop their cotangent in the plain backward as in the Pallas
+    kernel's (stride 1, the only stride it takes)."""
+    rng = np.random.RandomState(8)
+    x = rng.randn(1, *ishape).astype(np.float32)
+    x[rng.rand(*x.shape) < 0.03] = -np.inf
+    x[:, :2, :2, :2] = -np.inf
+    x[(0, *(rng.randint(d) for d in ishape))] = np.nan
+    out, vjp = jax.vjp(lambda v: max_pool3d_pallas(v, k, (1, 1, 1), p, True),
+                       jnp.asarray(x))
+    g = rng.randn(*out.shape).astype(np.float32)
+    (ref,) = vjp(jnp.asarray(g))
+    ref = np.asarray(ref)
+    got = tmp.max_pool3d_bwd_plain(torch.from_numpy(x), torch.from_numpy(g),
+                                   k, 1, p).numpy()
+    nan = np.isnan(ref)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(got[~nan], ref[~nan])
+    # some cotangent was dropped: the sums differ
+    assert not np.isclose(got.sum(dtype=np.float64), g.sum(dtype=np.float64))
+
+
 def test_pool_cpu_path_launches_no_kernel():
     before = dict(tmp.launches)
     x = torch.randn(1, 4, 6, 6, 2, requires_grad=True)

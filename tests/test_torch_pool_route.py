@@ -6,7 +6,10 @@ algorithm is modelled here with vectorised torch ops, step for step:
 
 - route pass: per output element, the window offset ``dt*9 + dh*3 + dw`` of
   the lexicographically first in-bounds cell, in (dw, dh, dt) order, that
-  holds the window max (a strict ``>`` scan in that order);
+  holds the window max (a strict ``>`` scan in that order), or no cell
+  (the byte 0x7F) where the JAX kernel drops the cotangent: a window that
+  holds a NaN, and a window whose max is -inf and whose offset-0 cell lies
+  in the -inf padding;
 - gather pass: per input element, nested accumulators T (outer), H, W
   (inner) over the covering windows in window-offset order, adding g where
   the window's route names this element's own offset; in bf16 the W and H
@@ -25,7 +28,7 @@ from tests.test_pooling import CASES
 
 torch.set_num_threads(1)
 
-_UNSET = 255
+NO_ROUTE = 0x7F       # kNoRouteByte of the kernel
 
 
 def _t3(v):
@@ -48,22 +51,30 @@ def _window_view(v, offs, n, s, p):
 
 
 def route_model(x, k, s, p):
-    """uint8 [B, To, Ho, Wo, C]: the composed first-match offset."""
+    """uint8 [B, To, Ho, Wo, C]: the composed first-match offset, or
+    NO_ROUTE where the window holds a NaN, or where its max is -inf and
+    its offset-0 cell lies in the padding."""
     n = [tmp.out_len(d, kk, ss, pp) for d, kk, ss, pp in
          zip(x.shape[1:4], k, s, p)]
     best = torch.full((x.shape[0], *n, x.shape[4]), float("-inf"),
                       dtype=torch.float32)
-    route = torch.full(best.shape, _UNSET, dtype=torch.uint8)
+    _, start_in = _window_view(x.float(), (0, 0, 0), n, s, p)
+    route = torch.where(start_in, torch.tensor(0, dtype=torch.uint8),
+                        torch.tensor(NO_ROUTE, dtype=torch.uint8))
+    route = route.expand(best.shape).clone()
+    has_nan = torch.zeros(best.shape, dtype=torch.bool)
     for dw in range(k[2]):
         for dh in range(k[1]):
             for dt in range(k[0]):
                 cells, ok = _window_view(x.float(), (dt, dh, dw), n, s, p)
-                upd = ok & ((cells > best) | (route == _UNSET))
+                upd = ok & (cells > best)
                 best = torch.where(upd, cells, best)
                 route = torch.where(upd, torch.tensor(dt * 9 + dh * 3 + dw,
                                                       dtype=torch.uint8),
                                     route)
-    return route
+                has_nan |= ok & torch.isnan(cells)
+    return torch.where(has_nan, torch.tensor(NO_ROUTE, dtype=torch.uint8),
+                       route)
 
 
 def gather_model(route, g, xshape, dtype, k, s, p):
@@ -126,3 +137,41 @@ def test_route_gather_model_bit_equal_plain(ishape, k, s, p, dtype, ties):
     ref = tmp.max_pool3d_bwd_plain(x, g, k, s, p)
     assert dx.dtype == ref.dtype and dx.shape == ref.shape
     assert torch.equal(dx, ref)
+
+
+def _special(rng, ishape, k, p, kind):
+    """Normal values with one NaN (inside the first window), with all -inf
+    windows at both corners (and 3% of -inf cells), or with both."""
+    x = rng.randn(1, *ishape)
+    if kind in ("neginf", "both"):
+        x[rng.rand(*x.shape) < 0.03] = -np.inf
+        x[:, :k[0], :k[1], :k[2]] = -np.inf
+        x[:, -k[0]:, -k[1]:, -k[2]:] = -np.inf
+    if kind in ("nan", "both"):
+        x[(0, *(rng.randint(kk - pp) for kk, pp in zip(k, p)),
+           rng.randint(ishape[3]))] = np.nan
+    return x.astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["nan", "neginf", "both"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("ishape,k,s,p", CASES)
+def test_route_model_drops_like_plain(ishape, k, s, p, dtype, kind):
+    """Windows that hold a NaN, and all -inf windows whose offset-0 cell
+    is padding, route nowhere, as in the plain version (and the JAX
+    kernel it is pinned to)."""
+    k, s, p = _t3(k), _t3(s), _t3(p)
+    rng = np.random.RandomState(13)
+    x = torch.from_numpy(_special(rng, ishape, k, p, kind)).to(dtype)
+    oshape = tmp._out_shape(x.shape, k, s, p)
+    g = torch.from_numpy(rng.randn(*oshape).astype(np.float32)).to(dtype)
+    route = route_model(x, k, s, p)
+    if kind != "neginf" or any(p):
+        assert bool((route == NO_ROUTE).any())
+    dx = gather_model(route, g, x.shape, dtype, k, s, p)
+    ref = tmp.max_pool3d_bwd_plain(x, g, k, s, p)
+    assert dx.dtype == ref.dtype and dx.shape == ref.shape
+    nan = torch.isnan(ref)
+    assert torch.equal(torch.isnan(dx), nan)
+    assert torch.equal(dx[~nan], ref[~nan])
