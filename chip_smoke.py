@@ -22,16 +22,21 @@ Phases, each printing its own lines:
      (the generic one takes it) and through the color_augment_generic
      build; two K3 calls at the main shapes bit-identical;
   3. timing with CUDA events at the main path's shapes, beside the bound,
-     the plain version and the library; K1/K2 are also held bit-equal to
-     their plain versions there (K1 at the fused key pass's batch 128
-     too), and their compile-time instances are timed against their
-     generic instances (the max_pool3d_generic build); K3's resident
-     instance against its generic one (the color_augment_generic build),
-     u8 and f32, with its grid, and where its time goes clip by clip (the
+     the plain version and the library; K1/K2 in f32 and in bf16 (the
+     main path's dtype), each also held bit-equal to its plain version
+     there (K1 at the fused key pass's batch 128 too, both dtypes), and
+     their compile-time instances are timed against their generic
+     instances (the max_pool3d_generic build); K3's resident instance
+     against its generic one (the color_augment_generic build), u8 and
+     f32, with its grid, and where its time goes clip by clip (the
      color_augment_timeline build, ``ops/k3_timeline.py``);
   4. the main path: ``rspnet_tpu_torch.pretrain.main`` on
      config/pretrain/s3dg.jsonnet with synthetic data and device geometry,
-     3 steps (``-d``), counting kernel launches.
+     3 steps (``-d``), counting kernel launches; the engine computes in
+     bf16 on the card, so every K1/K2 launch must be bf16;
+  5. ``--validate`` from phase 4's checkpoint: K1 and K3 launched, K2 not,
+     finite metrics, and the model, its BN statistics and the queue equal
+     to the checkpoint's bit for bit afterwards.
 Then one JSON line with the kernels, the card line again, and the result
 line ``{"ok": true, "device": {...}}`` last. Any failure exits non-zero
 before the result line. Imports nothing of JAX or of rspnet_tpu.
@@ -398,30 +403,34 @@ def check_color_repeat(dev, batch: int, clip) -> None:
 def check_pool_fwd(dev, batch: int) -> None:
     """K1 (default and generic builds) bit-equal to the plain version at
     every site at a main-path batch that time_pool does not take (the
-    fused key pass pools 2B clips)."""
+    fused key pass pools 2B clips), in f32 and bf16."""
     import torch
     from rspnet_tpu_torch.ops import max_pool3d as mp
 
     gen = torch.Generator(device=dev).manual_seed(6)
-    for name, shape4, k, s, p in POOL_SITES:
-        x = torch.relu(torch.randn((batch, *shape4), generator=gen,
-                                   device=dev))
-        ref = mp.max_pool3d_fwd_plain(x, k, s, p)
-        eq = torch.equal(mp.max_pool3d_fwd(x, k, s, p), ref)
-        eq_gen = torch.equal(mp.max_pool3d_fwd(x, k, s, p, build=GENERIC),
-                             ref)
-        print(f"check K1 {name:20s} [{batch},{','.join(map(str, shape4))}] "
-              f"bit-equal to plain: K1 {eq} K1 generic {eq_gen}", flush=True)
-        require(eq and eq_gen, f"K1 {name} at batch {batch}: differs from "
-                               f"the plain version (K1 {eq}, generic {eq_gen})")
-        del x, ref
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, shape4, k, s, p in POOL_SITES:
+            x = torch.relu(torch.randn((batch, *shape4), generator=gen,
+                                       device=dev)).to(dtype)
+            ref = mp.max_pool3d_fwd_plain(x, k, s, p)
+            eq = torch.equal(mp.max_pool3d_fwd(x, k, s, p), ref)
+            eq_gen = torch.equal(
+                mp.max_pool3d_fwd(x, k, s, p, build=GENERIC), ref)
+            print(f"check K1 {name:20s} [{batch},{','.join(map(str, shape4))}]"
+                  f" {dtype} bit-equal to plain: K1 {eq} K1 generic "
+                  f"{eq_gen}", flush=True)
+            require(eq and eq_gen, f"K1 {name} {dtype} at batch {batch}: "
+                                   f"differs from the plain version (K1 "
+                                   f"{eq}, generic {eq_gen})")
+            del x, ref
     torch.cuda.empty_cache()
 
 
-def time_pool(dev, batch: int) -> dict:
-    """K1/K2 at every site at the main path's shapes: timed beside the
-    bound, the plain version, the library and the generic instances,
-    and held bit-equal to the plain version on the same inputs."""
+def time_pool(dev, batch: int, dtype_name: str) -> dict:
+    """K1/K2 at every site at the main path's shapes in one dtype: timed
+    beside the bound, the plain version, the library and the generic
+    instances, and held bit-equal to the plain version on the same
+    inputs."""
     import torch
     import torch.nn.functional as F
     from rspnet_tpu_torch.ops import max_pool3d as mp
@@ -431,13 +440,14 @@ def time_pool(dev, batch: int) -> dict:
                             "bwd_generic", "bwd_plain", "bwd_lib",
                             "bwd_bound")}
     by = {}
+    dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device=dev).manual_seed(2)
     generic = GENERIC
     for name, shape4, k, s, p in POOL_SITES:
         x = torch.relu(torch.randn((batch, *shape4), generator=gen,
-                                   device=dev))
+                                   device=dev)).to(dtype)
         out = mp.max_pool3d_fwd(x, k, s, p)
-        g = torch.randn(out.shape, generator=gen, device=dev)
+        g = torch.randn(out.shape, generator=gen, device=dev).to(dtype)
         fref = mp.max_pool3d_fwd_plain(x, k, s, p)
         fwd_eq = torch.equal(out, fref)
         fgen_eq = torch.equal(mp.max_pool3d_fwd(x, k, s, p, build=generic),
@@ -465,8 +475,10 @@ def time_pool(dev, batch: int) -> dict:
         bl = time_ms(lambda: torch.ops.aten.max_pool3d_with_indices_backward(
             gn, xn, list(k), list(s), list(p), [1, 1, 1], False, idx))
         window = k[0] * k[1] * k[2]
-        fb, fby = bound((x.numel() + out.numel()) * 4, out.numel() * window)
-        bb, bby = bound((2 * x.numel() + g.numel()) * 4,
+        esize = x.element_size()
+        fb, fby = bound((x.numel() + out.numel()) * esize,
+                        out.numel() * window)
+        bb, bby = bound((2 * x.numel() + g.numel()) * esize,
                         x.numel() * 4 * (k[0] + k[1] + k[2]))
         by["fwd"], by["bwd"] = fby, bby
         for key, v in (("fwd", f), ("fwd_again", f2), ("fwd_generic", fg),
@@ -476,7 +488,8 @@ def time_pool(dev, batch: int) -> dict:
                        ("bwd_lib", bl), ("bwd_bound", bb)):
             tot[key] += v
         print(f"time {name:20s} [{batch},{','.join(map(str, shape4))}] "
-              f"K1 {f:.4f} ms (again {f2:.4f}, generic instance {fg:.4f}, "
+              f"{dtype_name} K1 {f:.4f} ms (again {f2:.4f}, generic "
+              f"instance {fg:.4f}, "
               f"bound {fb:.4f}, plain {fp:.3f}, F.max_pool3d {fl:.4f}) | "
               f"K2 {b:.4f} ms (again {b2:.4f}, generic instance {bg:.4f}, "
               f"bound {bb:.4f}, plain {bp:.3f}, aten bwd {bl:.4f}) | "
@@ -484,15 +497,18 @@ def time_pool(dev, batch: int) -> dict:
               f"{bwd_eq} K2 generic {gen_eq}",
               flush=True)
         require(fwd_eq and fgen_eq and bwd_eq and gen_eq,
-                f"{name} at batch {batch}: a kernel differs from its plain "
+                f"{name} {dtype_name} at batch {batch}: a kernel differs "
+                f"from its plain "
                 f"version (K1 {fwd_eq}, K1 generic {fgen_eq}, K2 {bwd_eq}, "
                 f"K2 generic {gen_eq})")
         del x, out, g, idx
-    print(f"time K1 over the {len(POOL_SITES)} sites: {tot['fwd']:.4f} ms, "
+    print(f"time K1 over the {len(POOL_SITES)} sites, {dtype_name}: "
+          f"{tot['fwd']:.4f} ms, "
           f"again {tot['fwd_again']:.4f}, generic instance "
           f"{tot['fwd_generic']:.4f}, F.max_pool3d {tot['fwd_lib']:.4f}, "
           f"bound {tot['fwd_bound']:.4f}", flush=True)
-    print(f"time K2 over the {len(POOL_SITES)} sites: {tot['bwd']:.4f} ms, "
+    print(f"time K2 over the {len(POOL_SITES)} sites, {dtype_name}: "
+          f"{tot['bwd']:.4f} ms, "
           f"again {tot['bwd_again']:.4f}, generic instance "
           f"{tot['bwd_generic']:.4f}, aten bwd {tot['bwd_lib']:.4f}, bound "
           f"{tot['bwd_bound']:.4f}", flush=True)
@@ -568,54 +584,124 @@ def time_color(dev, batch: int, frames: int, size: int) -> dict:
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 
-def main_path(batch: int, profile: bool = False) -> dict:
-    import torch
-    from rspnet_tpu_torch import pretrain
+def _counters():
     from rspnet_tpu_torch.ops import color_augment as ca
     from rspnet_tpu_torch.ops import max_pool3d as mp
+    return (mp.launches, mp.launches_by_dtype, mp.plain_cuda_calls,
+            ca.launches, ca.plain_cuda_calls)
 
-    counters = (mp.launches, mp.plain_cuda_calls, ca.launches,
-                ca.plain_cuda_calls)
-    with tempfile.TemporaryDirectory() as exp:
-        ext = '{dataset+: {name: "synthetic"}, device_geometry: true}'
-        argv = ["-c", "config/pretrain/s3dg.jsonnet", "-e", exp, "-x", ext,
-                "-d", "--seed", "0", "--device", "cuda"]
-        torch.cuda.reset_peak_memory_stats()
-        for c in counters:
-            for key in c:
-                c[key] = 0
-        t0 = time.perf_counter()
-        if profile:
-            from torch.profiler import ProfilerActivity
-            acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-            with torch.profiler.profile(activities=acts,
-                                        record_shapes=True) as prof:
-                engine = pretrain.main(argv)
-                torch.cuda.synchronize()
-        else:
+
+def _reset_counters() -> None:
+    for c in _counters():
+        for key in c:
+            c[key] = 0
+
+
+def _read_counters():
+    """(launches by kernel, K1/K2 launches by dtype, plain-version calls on
+    CUDA tensors)"""
+    mp_l, mp_d, mp_p, ca_l, ca_p = _counters()
+    return {**mp_l, **ca_l}, dict(mp_d), {**mp_p, **ca_p}
+
+
+def _main_argv(exp: str, *more: str):
+    ext = '{dataset+: {name: "synthetic"}, device_geometry: true}'
+    return ["-c", "config/pretrain/s3dg.jsonnet", "-e", exp, "-x", ext,
+            "-d", "--seed", "0", "--device", "cuda", *more]
+
+
+def main_path(batch: int, exp: str, profile: bool = False) -> dict:
+    """Phase 4: 3 train steps through the CLI entry point; returns the
+    launches, step times, peak memory and the checkpoint it wrote."""
+    import torch
+    from rspnet_tpu_torch import pretrain
+
+    argv = _main_argv(exp)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    t0 = time.perf_counter()
+    if profile:
+        from torch.profiler import ProfilerActivity
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts,
+                                    record_shapes=True) as prof:
             engine = pretrain.main(argv)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = {**mp.launches, **ca.launches}
-        plain = {**mp.plain_cuda_calls, **ca.plain_cuda_calls}
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        loss = engine.meters["loss"].avg
-        ckpt = os.path.exists(os.path.join(exp, "checkpoint.pth.tar"))
+            torch.cuda.synchronize()
+    else:
+        engine = pretrain.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, by_dtype, plain = _read_counters()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    loss = engine.meters["loss"].avg
+    ckpt = os.path.join(exp, "checkpoint.pth.tar")
     steps = engine.step_times
-    print(f"main path: batch {batch}, {len(steps)} steps, step ms "
-          f"{[round(t, 1) for t in steps]}, wall {wall:.1f} s, peak memory "
-          f"{peak:.2f} GiB, loss {loss:.4f}, launches {counts}, plain calls "
-          f"on cuda {plain}, checkpoint {ckpt}", flush=True)
+    print(f"main path: batch {batch}, compute dtype {engine.dtype}, "
+          f"{len(steps)} steps, step ms {[round(t, 1) for t in steps]}, "
+          f"wall {wall:.1f} s, peak memory {peak:.2f} GiB, loss {loss:.4f}, "
+          f"launches {counts}, K1/K2 launches by dtype {by_dtype}, plain "
+          f"calls on cuda {plain}, checkpoint {os.path.exists(ckpt)}",
+          flush=True)
     require(math.isfinite(loss), f"main path loss {loss} is not finite")
     require(len(steps) == 3, f"main path ran {len(steps)} steps, not 3")
+    require(engine.dtype == torch.bfloat16,
+            f"main path computes in {engine.dtype}, not bf16")
     require(all(v > 0 for v in counts.values()),
             f"a kernel of the main path was not launched: {counts}")
+    require(not any(n for key, n in by_dtype.items()
+                    if not key.endswith(".bfloat16")),
+            f"K1/K2 launched off bf16 on the main path: {by_dtype}")
     require(not any(plain.values()),
             f"plain versions ran on CUDA tensors: {plain}")
-    require(ckpt, "checkpoint.pth.tar was not written")
+    require(os.path.exists(ckpt), "checkpoint.pth.tar was not written")
     if profile:
         report_profile(prof, wall)
-    return {"launches": counts, "steps_ms": steps, "peak_gib": peak}
+    return {"launches": counts, "steps_ms": steps, "peak_gib": peak,
+            "checkpoint": ckpt}
+
+
+def validate_path(exp: str, ckpt: str) -> dict:
+    """Phase 5: ``--validate`` from phase 4's checkpoint. K1 and K3 run,
+    K2 does not; the metrics are finite; the model (BN statistics
+    included) and the queue equal the checkpoint's afterwards."""
+    import torch
+    from rspnet_tpu_torch import pretrain
+    from rspnet_tpu_torch.framework import load_state
+
+    _reset_counters()
+    t0 = time.perf_counter()
+    engine = pretrain.main(_main_argv(exp, "--validate", "--load-checkpoint",
+                                      ckpt))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, by_dtype, plain = _read_counters()
+    saved = load_state(ckpt)["model"]
+    s = engine.state
+    same = {
+        "model_q": all(torch.equal(v.cpu(), saved["model_q"][k])
+                       for k, v in s.model_q.state_dict().items()),
+        "model_k": all(torch.equal(v.cpu(), saved["model_k"][k])
+                       for k, v in s.model_k.state_dict().items()),
+        "queue": (torch.equal(s.queue.cpu(), saved["queue"].cpu())
+                  and s.queue_ptr == int(saved["queue_ptr"])),
+    }
+    metrics = engine.validation
+    print(f"validate: wall {wall:.1f} s, metrics "
+          f"{ {k: round(v, 4) for k, v in metrics.items()} }, launches "
+          f"{counts}, K1/K2 launches by dtype {by_dtype}, plain calls on "
+          f"cuda {plain}, state equal to the checkpoint {same}", flush=True)
+    require(metrics and all(math.isfinite(v) for v in metrics.values()),
+            f"validate metrics not finite: {metrics}")
+    require(counts["max_pool3d_fwd"] > 0 and counts["color_augment"] > 0,
+            f"validate did not launch K1 and K3: {counts}")
+    require(counts["max_pool3d_bwd"] == 0,
+            f"validate launched K2: {counts}")
+    require(by_dtype["max_pool3d_fwd.float32"] == 0,
+            f"validate launched K1 off bf16: {by_dtype}")
+    require(not any(plain.values()),
+            f"plain versions ran on CUDA tensors: {plain}")
+    require(all(same.values()), f"validate changed the state: {same}")
+    return {"launches": counts}
 
 
 _KERNEL_GROUPS = [
@@ -721,37 +807,47 @@ def main(argv=None) -> int:
     check_color_repeat(dev, MAIN_BATCH, COLOR_CLIP)
 
     check_pool_fwd(dev, batch=2 * MAIN_BATCH)                     # phase 3
-    pool = time_pool(dev, batch=MAIN_BATCH)
+    pool = {d: time_pool(dev, MAIN_BATCH, d) for d in ("float32", "bfloat16")}
     color = time_color(dev, batch=MAIN_BATCH, frames=32, size=224)
     torch.cuda.empty_cache()
     from rspnet_tpu_torch.ops import k3_timeline
     k3_timeline.main(["--batch", str(MAIN_BATCH)])
     torch.cuda.empty_cache()
 
-    launches = main_path(MAIN_BATCH, args.profile)["launches"]    # phase 4
+    with tempfile.TemporaryDirectory() as exp:
+        trained = main_path(MAIN_BATCH, os.path.join(exp, "train"),  # 4
+                            args.profile)
+        torch.cuda.empty_cache()
+        validate_path(os.path.join(exp, "validate"),                 # 5
+                      trained["checkpoint"])
+    launches = trained["launches"]
+
+    def pool_row(name, key, replaces, err):
+        # the main path's dtype (bf16) first, the f32 times beside it
+        bf, f32 = pool["bfloat16"], pool["float32"]
+        return {"name": name, "route": "cuda",
+                "source": "rspnet_tpu_torch/csrc/max_pool3d.cu",
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": err, "dtype": "bfloat16",
+                "ms": bf[key], "plain_ms": bf[f"{key}_plain"],
+                "bound_ms": bf[f"{key}_bound"], "bound_by": bf["by"][key],
+                "library_ms": bf[f"{key}_lib"], "ms_f32": f32[key],
+                "plain_ms_f32": f32[f"{key}_plain"],
+                "bound_ms_f32": f32[f"{key}_bound"],
+                "library_ms_f32": f32[f"{key}_lib"]}
 
     kernels = [
-        {"name": "max_pool3d_fwd", "route": "cuda",
-         "source": "rspnet_tpu_torch/csrc/max_pool3d.cu",
-         "replaces": "rspnet_tpu/ops/pallas_pool.py:152",
-         "launches": launches["max_pool3d_fwd"], "max_abs_err": err_fwd,
-         "ms": pool["fwd"], "plain_ms": pool["fwd_plain"],
-         "bound_ms": pool["fwd_bound"], "bound_by": pool["by"]["fwd"],
-         "library_ms": pool["fwd_lib"]},
-        {"name": "max_pool3d_bwd", "route": "cuda",
-         "source": "rspnet_tpu_torch/csrc/max_pool3d.cu",
-         "replaces": "rspnet_tpu/ops/pallas_pool.py:159",
-         "launches": launches["max_pool3d_bwd"], "max_abs_err": err_bwd,
-         "ms": pool["bwd"], "plain_ms": pool["bwd_plain"],
-         "bound_ms": pool["bwd_bound"], "bound_by": pool["by"]["bwd"],
-         "library_ms": pool["bwd_lib"]},
+        pool_row("max_pool3d_fwd", "fwd", "rspnet_tpu/ops/pallas_pool.py:152",
+                 err_fwd),
+        pool_row("max_pool3d_bwd", "bwd", "rspnet_tpu/ops/pallas_pool.py:159",
+                 err_bwd),
         {"name": "color_augment", "route": "cuda",
          "source": "rspnet_tpu_torch/csrc/color_augment.cu",
          "replaces": "rspnet_tpu/ops/pallas_augment.py:51",
          "launches": launches["color_augment"], "max_abs_err": err_color,
-         "ms": color["ms"], "plain_ms": color["plain_ms"],
-         "bound_ms": color["bound_ms"], "bound_by": color["bound_by"],
-         "library_ms": None},
+         "dtype": "float32", "ms": color["ms"],
+         "plain_ms": color["plain_ms"], "bound_ms": color["bound_ms"],
+         "bound_by": color["bound_by"], "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")

@@ -65,6 +65,12 @@
 //   (its max is NaN, which equals no cell); (b) its max is -inf and its
 //   offset-0 cell lies in the -inf padding, which is then the first match.
 //   Such a route is the byte kNoRouteByte, which the gather never matches.
+//   Case (a) is a deviation from the JAX S3D-G's default pool,
+//   rspnet_tpu/models/common.py:_max_pool3d_separable_rw, whose VJP (one
+//   select-and-scatter per axis) routes a NaN window's cotangent to a cell;
+//   on every input without NaN the two route alike. In bf16 the two also
+//   round differently at stride 1 (up to 2.5 bf16 ulps of the cotangent
+//   mass reaching a cell; ops/max_pool3d.py states the rule).
 // - Index arithmetic is 32-bit whenever the tensors allow it (64-bit integer
 //   division is a long software sequence on the card); the forward's
 //   grid-stride loop counter stays 64-bit so it cannot wrap.

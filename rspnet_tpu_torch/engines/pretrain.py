@@ -7,15 +7,23 @@ The hot loop:
     -> device augment (ops.augment.augment_batch: crop_resize + kernel K3)
     -> train step (moco.step.train_step: S3D-G through kernels K1/K2)
 
+``validate_epoch`` (``--validate``) runs the same loader and augment into
+``moco.step.eval_step``: metrics only, nothing updated.
+
 Run-dir artifacts: checkpoint.pth.tar (epoch / arch / model / best_loss /
 optimizer / scheduler, the JAX engine's top-level keys) and the
-model_best.pth.tar hard link. Float32 throughout; TF32 is off for both
-matmuls and cuDNN convolutions, set explicitly and logged.
+model_best.pth.tar hard link.
+
+Compute dtype, chosen from the device as the JAX engine chooses it from its
+platform (rspnet_tpu/engines/pretrain.py:69-71): bf16 on the card, f32 on
+the CPU. Parameters, BN statistics, the optimizer state, the EMA, the queue
+and the checkpoints stay f32; K3's output is f32 and the stem conv casts
+it. TF32 is off for the f32 matmuls and convolutions that remain, and bf16
+GEMMs reduce in f32; all three flags are set explicitly and logged.
 
 Not ported yet (each raises NotImplementedError): more than one card,
 ``parallel:`` 2-D layouts, more than one ``moco.diff_speed``,
-``moco.packed_frames``, ``cache_device``, ``moco.aug_plus`` and
-``--validate``.
+``moco.packed_frames``, ``cache_device`` and ``moco.aug_plus``.
 """
 from __future__ import annotations
 
@@ -30,7 +38,8 @@ from ..data.pipeline import build_loader, prefetch_iterator
 from ..framework import CheckpointManager, MeterGroup, load_state
 from ..framework.environment import scale_learning_rate
 from ..framework.lr_schedule import build_optimizer, build_scheduler, set_opt_lr
-from ..moco import METRIC_KEYS, build_moco_model, init_moco_state, train_step
+from ..moco import (METRIC_KEYS, build_moco_model, eval_step, init_moco_state,
+                    train_step)
 from ..ops.augment import augment_batch, sample_train_params
 from ..utils.moco import replace_moco_k_in_config
 from .normalization import dataset_normalization
@@ -76,17 +85,24 @@ class PretrainEngine:
         self.debug = bool(getattr(args, "debug", False))
         _unsupported(cfg, args)
         self.device = resolve_device(getattr(args, "device", "cuda"))
+        self.dtype = torch.bfloat16 if self.device.type == "cuda" else None
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        logger.info("Device %s; allow_tf32: matmul=%s cudnn=%s", self.device,
-                    torch.backends.cuda.matmul.allow_tf32,
-                    torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
+        logger.info(
+            "Device %s; compute dtype %s; allow_tf32: matmul=%s cudnn=%s; "
+            "bf16 reduced-precision reduction: %s", self.device,
+            self.dtype or torch.float32,
+            torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction)
 
         self.batch_size = cfg.get_int("batch_size")
         replace_moco_k_in_config(cfg, self.batch_size)
         seed = cfg.get_int("seed", 0)
         torch.manual_seed(seed)
-        model, self.moco_cfg = build_moco_model(cfg)
+        model, self.moco_cfg = build_moco_model(cfg, dtype=self.dtype)
         model = model.to(self.device, memory_format=torch.channels_last_3d)
         self.arch = cfg.get_string("model.arch")
 
@@ -127,6 +143,8 @@ class PretrainEngine:
         self.normalize = dataset_normalization(cfg, vid_debug=self.debug)
         # per-step host-clock times (ms), each ended by a device sync
         self.step_times = []
+        # the meter averages of the last validate_epoch
+        self.validation = {}
 
     # -- device-side augmentation of a uint8 batch ----------------------------
     # Host-geometry loaders pre-crop+resize to the network size (identity
@@ -187,6 +205,29 @@ class PretrainEngine:
         dt = time.perf_counter() - t_epoch
         logger.info("Epoch %d done in %.1fs (%.1f clips/s)", epoch, dt,
                     samples / max(dt, 1e-9))
+
+    def validate_epoch(self) -> dict:
+        """One no-grad statistics epoch over the train loader at the current
+        epoch (port of rspnet_tpu/engines/pretrain.py:293); returns the
+        meters' averages, weighted by batch, and keeps them in
+        ``validation``."""
+        meters = MeterGroup(METRIC_KEYS)
+        self.train_loader.set_epoch(self.current_epoch)
+        rows, sizes = [], []
+        for i, batch in enumerate(prefetch_iterator(iter(self.train_loader))):
+            clip_q = self._augment_clip(batch["clips"][0])
+            clip_k = self._augment_clip(batch["clips"][1])
+            metrics = eval_step(self.state, clip_q, clip_k, self.moco_cfg,
+                                generator=self.generator)
+            rows.append(torch.stack([metrics[k] for k in METRIC_KEYS]))
+            sizes.append(batch["labels"].shape[0])
+            if self.debug and i >= 2:
+                break
+        for row, n in zip(torch.stack(rows).cpu().tolist(), sizes):
+            meters.update(dict(zip(METRIC_KEYS, row)), n=n)
+        logger.info("Validate statistics: %s", meters)
+        self.validation = {k: meters[k].avg for k in METRIC_KEYS}
+        return self.validation
 
     def run(self) -> None:
         num_epochs = 1 if self.debug else self.num_epochs

@@ -1,12 +1,14 @@
 """SSL task layer: MoCo with dual pretext heads (A-VID + RSP)."""
 from .step import (METRIC_KEYS, MoCoConfig, MoCoState, diff_speed_gather,
-                   init_moco_state, momentum_update, queue_update, train_step)
+                   eval_step, init_moco_state, momentum_update, queue_update,
+                   train_step)
 from .wrapper import MultiTaskWrapper
 
 
-def build_moco_model(cfg):
+def build_moco_model(cfg, dtype=None):
     """ConfigTree -> (MultiTaskWrapper, MoCoConfig) (port of
-    rspnet_tpu/moco/__init__.py:build_moco_model)."""
+    rspnet_tpu/moco/__init__.py:build_moco_model); ``dtype`` is the compute
+    dtype of the backbone and the heads (None: the input's)."""
     from ..models import get_model_class
 
     model_cfg = cfg.get_config("model").as_plain_dict()
@@ -26,11 +28,12 @@ def build_moco_model(cfg):
         loss_lambda_a=cfg.get_float("loss_lambda.A", 1.0),
         loss_lambda_m=cfg.get_float("loss_lambda.M", 1.0),
     )
-    model = MultiTaskWrapper(get_model_class(arch)(), num_classes=moco_cfg.dim,
-                             fc_type=moco_cfg.fc_type)
+    model = MultiTaskWrapper(get_model_class(arch)(dtype=dtype),
+                             num_classes=moco_cfg.dim,
+                             fc_type=moco_cfg.fc_type, dtype=dtype)
     return model, moco_cfg
 
 
 __all__ = ["MultiTaskWrapper", "MoCoConfig", "MoCoState", "METRIC_KEYS",
-           "build_moco_model", "init_moco_state", "train_step",
+           "build_moco_model", "init_moco_state", "train_step", "eval_step",
            "momentum_update", "queue_update", "diff_speed_gather"]

@@ -12,7 +12,8 @@ concatenated 2B batch (real and negative keys together), as the JAX
 package does; the reference ran two B-batch passes. Randomness: the
 permutation that picks the fast half and the speed row are drawn from a
 ``torch.Generator`` unless the caller passes them in (the parity tests feed
-the JAX step's draws).
+the JAX step's draws). ``eval_step`` is the ``--validate`` counterpart: the
+same metrics from eval-mode encoders, with nothing updated.
 """
 from __future__ import annotations
 
@@ -128,15 +129,51 @@ def key_pass(model_k: MultiTaskWrapper, k_real: torch.Tensor,
 
 
 def avid_loss_dense(q_a, k_a, k_neg_a, queue, cfg: MoCoConfig):
-    """A-VID InfoNCE against the queue for both positives (builder :77)."""
+    """A-VID InfoNCE against the queue for both positives (builder :77).
+
+    With bf16 heads the dtypes follow JAX's promotions: the positive logits
+    are bf16 sums, ``q_a @ queue`` promotes to the queue's f32 (torch's
+    matmul takes one dtype, so the cast is explicit), and the logits and
+    the cross-entropy are f32."""
     l_pos_a1 = torch.sum(q_a * k_a, dim=1, keepdim=True)
     l_pos_a2 = torch.sum(q_a * k_neg_a, dim=1, keepdim=True)
-    l_neg_a = q_a @ queue.detach()
-    logits1 = torch.cat([l_pos_a1, l_neg_a], dim=1) / cfg.t
-    logits2 = torch.cat([l_pos_a2, l_neg_a], dim=1) / cfg.t
+    dt = torch.promote_types(q_a.dtype, queue.dtype)
+    l_neg_a = q_a.to(dt) @ queue.detach().to(dt)
+    logits1 = torch.cat([l_pos_a1.to(dt), l_neg_a], dim=1) / cfg.t
+    logits2 = torch.cat([l_pos_a2.to(dt), l_neg_a], dim=1) / cfg.t
     labels = torch.zeros(q_a.shape[0], dtype=torch.long, device=q_a.device)
     loss = F.cross_entropy(logits1, labels) + F.cross_entropy(logits2, labels)
     return loss, (logits1, logits2)
+
+
+def moco_objective(q_a, q_m, k_a, k_m, k_neg_a, k_neg_m, queue,
+                   cfg: MoCoConfig):
+    """The A-VID + margin-ranking loss and the step's metrics
+    (step_core.py:332-370). The RSP logits and their loss stay in the heads'
+    dtype (bf16 sums, as in JAX); the total loss is the promotion of both
+    terms. Metrics are 0-d tensors in the loss's dtype (percent for
+    accuracies)."""
+    loss_a, (logits1, logits2) = avid_loss_dense(q_a, k_a, k_neg_a, queue,
+                                                 cfg)
+    # JAX applies a Python constant to a bf16 array as a bf16 value (a weak
+    # type): t, the margin and lambda_M are rounded to the heads' dtype
+    t, margin, lambda_m = (q_m.new_full((), v) for v in
+                           (cfg.t, cfg.margin, cfg.loss_lambda_m))
+    l_pos_m = torch.sum(q_m * k_m, dim=1, keepdim=True) / t
+    l_neg_m = torch.sum(q_m * k_neg_m, dim=1, keepdim=True) / t
+    loss_m = torch.clamp(margin - (l_pos_m - l_neg_m), min=0.0).mean()
+    loss = cfg.loss_lambda_a * loss_a + lambda_m * loss_m
+    with torch.no_grad():
+        labels = torch.zeros(q_a.shape[0], dtype=torch.long,
+                             device=q_a.device)
+        acc1_a, acc5_a = accuracy(logits1, labels, topk=(1, 5))
+        acc1_an, acc5_an = accuracy(logits2, labels, topk=(1, 5))
+        acc_m = (l_pos_m > l_neg_m).to(loss.dtype).mean() * 100.0
+        metrics = {"loss": loss, "loss_A": loss_a, "loss_M": loss_m,
+                   "acc1_A": acc1_a, "acc5_A": acc5_a, "acc1_A_n": acc1_an,
+                   "acc5_A_n": acc5_an, "acc1_M": acc_m}
+        metrics = {k: v.detach().to(loss.dtype) for k, v in metrics.items()}
+    return loss, metrics
 
 
 @torch.no_grad()
@@ -159,7 +196,7 @@ def train_step(state: MoCoState, im_q: torch.Tensor, im_k: torch.Tensor,
                perm: Optional[torch.Tensor] = None,
                speed_index: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """One step on NDHWC clips [B, T, H, W, 3]; updates ``state`` in place
-    and returns the metrics as 0-d tensors (percent for accuracies)."""
+    and returns the metrics (``moco_objective``)."""
     model_q, model_k = state.model_q, state.model_k
     model_q.train()
     model_k.train()
@@ -177,12 +214,8 @@ def train_step(state: MoCoState, im_q: torch.Tensor, im_k: torch.Tensor,
 
     # 4. query pass + loss
     q_a, q_m = model_q(q_real)
-    loss_a, (logits1, logits2) = avid_loss_dense(q_a, k_a, k_neg_a,
-                                                 state.queue, cfg)
-    l_pos_m = torch.sum(q_m * k_m, dim=1, keepdim=True) / cfg.t
-    l_neg_m = torch.sum(q_m * k_neg_m, dim=1, keepdim=True) / cfg.t
-    loss_m = torch.clamp(cfg.margin - (l_pos_m - l_neg_m), min=0.0).mean()
-    loss = cfg.loss_lambda_a * loss_a + cfg.loss_lambda_m * loss_m
+    loss, metrics = moco_objective(q_a, q_m, k_a, k_m, k_neg_a, k_neg_m,
+                                   state.queue, cfg)
 
     # 5. backward + SGD
     state.optimizer.zero_grad(set_to_none=True)
@@ -192,15 +225,34 @@ def train_step(state: MoCoState, im_q: torch.Tensor, im_k: torch.Tensor,
     # 6. enqueue the negative keys (reference enqueues k_neg_A, :544)
     state.queue_ptr = queue_update(state.queue, state.queue_ptr, k_neg_a)
     state.step += 1
+    return metrics
 
-    # 7. metrics
-    with torch.no_grad():
-        labels = torch.zeros(q_a.shape[0], dtype=torch.long,
-                             device=q_a.device)
-        acc1_a, acc5_a = accuracy(logits1, labels, topk=(1, 5))
-        acc1_an, acc5_an = accuracy(logits2, labels, topk=(1, 5))
-        acc_m = (l_pos_m > l_neg_m).to(loss.dtype).mean() * 100.0
-        return {"loss": loss.detach(), "loss_A": loss_a.detach(),
-                "loss_M": loss_m.detach(), "acc1_A": acc1_a,
-                "acc5_A": acc5_a, "acc1_A_n": acc1_an, "acc5_A_n": acc5_an,
-                "acc1_M": acc_m}
+
+@torch.no_grad()
+def eval_step(state: MoCoState, im_q: torch.Tensor, im_k: torch.Tensor,
+              cfg: MoCoConfig, *, perm: Optional[torch.Tensor] = None,
+              speed_index: Optional[int] = None,
+              generator: Optional[torch.Generator] = None
+              ) -> Dict[str, torch.Tensor]:
+    """The train step's metrics without training (``--validate``; port of
+    step_core.py:383 make_eval_body). Both encoders run in eval mode (BN
+    from its running statistics), the keys in one fused 2B forward. Nothing
+    is updated: no EMA, no BN statistics, no enqueue, no optimizer step.
+    The encoders' train/eval modes are restored afterwards."""
+    model_q, model_k = state.model_q, state.model_k
+    modes = (model_q.training, model_k.training)
+    model_q.eval()
+    model_k.eval()
+    try:
+        q_real, k_real, k_neg = diff_speed_gather(
+            im_q, im_k, cfg, perm=perm, speed_index=speed_index,
+            generator=generator)
+        b = k_real.shape[0]
+        k2_a, k2_m = model_k(torch.cat([k_real, k_neg], dim=0))
+        q_a, q_m = model_q(q_real)
+        _, metrics = moco_objective(q_a, q_m, k2_a[:b], k2_m[:b], k2_a[b:],
+                                    k2_m[b:], state.queue, cfg)
+        return metrics
+    finally:
+        model_q.train(modes[0])
+        model_k.train(modes[1])

@@ -5,16 +5,18 @@ blocks, 13 max-pool sites. Module names follow the reference torch model
 (rspnet_tpu/models/torch_bridge.py:_s3dg_mapping), e.g.
 ``feature.sepConv1.sep_conv.0.conv3d``. BN: eps 1e-3, torch momentum 0.001.
 Input and output of ``forward`` are NDHWC; inside, NCDHW channels-last views.
+``dtype`` is the compute dtype (models/common.py); the self-gating runs in
+it too.
 """
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
-from .common import ConvBN, MaxPool3d, global_avg_pool
+from .common import ConvBN, MaxPool3d, conv3d, global_avg_pool
 
 _BN = dict(bn_eps=1e-3, bn_momentum=0.999)
 
@@ -23,13 +25,17 @@ class SepConv(nn.Module):
     """(1,k,k) conv+BN+ReLU, (k,1,1) conv+BN+ReLU, optional self-gating."""
 
     def __init__(self, in_channels: int, features: int, kernel_size: int,
-                 stride: int = 1, padding: int = 0, gate: bool = True):
+                 stride: int = 1, padding: int = 0, gate: bool = True,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         k, p = kernel_size, padding
         self.sep_conv = nn.Sequential(
-            ConvBN(in_channels, features, (1, k, k), stride, (0, p, p), **_BN),
-            ConvBN(features, features, (k, 1, 1), 1, (p, 0, 0), **_BN))
+            ConvBN(in_channels, features, (1, k, k), stride, (0, p, p), **_BN,
+                   dtype=dtype),
+            ConvBN(features, features, (k, 1, 1), 1, (p, 0, 0), **_BN,
+                   dtype=dtype))
         self.gate = gate
+        self.dtype = dtype
         if gate:
             self.excitation = nn.Conv3d(features, features, 1, bias=True)
 
@@ -37,24 +43,26 @@ class SepConv(nn.Module):
         x = self.sep_conv(x)
         if self.gate:
             weight = x.mean(dim=(2, 3, 4), keepdim=True)
-            x = torch.sigmoid(self.excitation(weight)) * x
+            x = torch.sigmoid(conv3d(self.excitation, weight, self.dtype)) * x
         return x
 
 
 class SepInc(nn.Module):
     """Inception block: 1x1 | 1x1->sep3 | 1x1->sep3 | pool->1x1."""
 
-    def __init__(self, in_channels: int, oc: Sequence[int], gate: bool = True):
+    def __init__(self, in_channels: int, oc: Sequence[int], gate: bool = True,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.branch0 = ConvBN(in_channels, oc[0], 1, **_BN)
+        bn = dict(_BN, dtype=dtype)
+        self.branch0 = ConvBN(in_channels, oc[0], 1, **bn)
         self.branch1 = nn.Sequential(
-            ConvBN(in_channels, oc[1], 1, **_BN),
-            SepConv(oc[1], oc[2], 3, 1, 1, gate))
+            ConvBN(in_channels, oc[1], 1, **bn),
+            SepConv(oc[1], oc[2], 3, 1, 1, gate, dtype))
         self.branch2 = nn.Sequential(
-            ConvBN(in_channels, oc[3], 1, **_BN),
-            SepConv(oc[3], oc[4], 3, 1, 1, gate))
+            ConvBN(in_channels, oc[3], 1, **bn),
+            SepConv(oc[3], oc[4], 3, 1, 1, gate, dtype))
         self.branch3 = nn.Sequential(MaxPool3d(3, 1, 1),
-                                     ConvBN(in_channels, oc[5], 1, **_BN))
+                                     ConvBN(in_channels, oc[5], 1, **bn))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.cat([self.branch0(x), self.branch1(x), self.branch2(x),
@@ -80,19 +88,19 @@ class S3DG(nn.Module):
 
     feature_dim = 1024
 
-    def __init__(self, gate: bool = True):
+    def __init__(self, gate: bool = True, dtype: Optional[torch.dtype] = None):
         super().__init__()
         layers = OrderedDict()
-        layers["sepConv1"] = SepConv(3, 64, 7, 2, 3, gate)
+        layers["sepConv1"] = SepConv(3, 64, 7, 2, 3, gate, dtype)
         layers["maxPool1"] = MaxPool3d((1, 3, 3), (1, 2, 2), (0, 1, 1))
-        layers["basicConv3d"] = ConvBN(64, 64, 1, **_BN)
-        layers["sep_conv2"] = SepConv(64, 192, 3, 1, 1, gate)
+        layers["basicConv3d"] = ConvBN(64, 64, 1, **_BN, dtype=dtype)
+        layers["sep_conv2"] = SepConv(64, 192, 3, 1, 1, gate, dtype)
         layers["maxPool2"] = MaxPool3d((1, 3, 3), (1, 2, 2), (0, 1, 1))
         c = 192
         for name, oc, pool in INC_CHANNELS:
             if pool is not None:
                 layers[f"maxPool_{name}"] = MaxPool3d(*pool)
-            layers[name] = SepInc(c, oc, gate)
+            layers[name] = SepInc(c, oc, gate, dtype)
             c = oc[0] + oc[2] + oc[4] + oc[5]
         self.feature = nn.Sequential(layers)
 
@@ -105,12 +113,12 @@ class S3DG(nn.Module):
         return global_avg_pool(self.features(x.permute(0, 4, 1, 2, 3)))
 
 
-def s3dg() -> S3DG:
-    return S3DG(gate=True)
+def s3dg(dtype: Optional[torch.dtype] = None) -> S3DG:
+    return S3DG(gate=True, dtype=dtype)
 
 
-def s3d() -> S3DG:
-    return S3DG(gate=False)
+def s3d(dtype: Optional[torch.dtype] = None) -> S3DG:
+    return S3DG(gate=False, dtype=dtype)
 
 
 MODELS = {"s3dg": s3dg, "s3d": s3d}

@@ -32,6 +32,36 @@ each stage). No atomics and no stage buffers: it is deterministic and
 equal bit for bit to ``max_pool3d_bwd_plain`` in f32 and bf16. See
 ``csrc/max_pool3d.cu``.
 
+How this backward relates to the JAX S3D-G's pool. The JAX S3D-G pools
+with ``_max_pool3d_separable_rw`` (rspnet_tpu/models/common.py:296, the
+default at :488), whose VJP is one select-and-scatter per axis; this
+module follows the Pallas kernel instead. The two route the same cell on
+finite and -inf inputs, ties included (first match per axis both), with
+one deviation and one rounding difference:
+
+- NaN (a deviation). A window that holds a NaN routes its cotangent
+  nowhere here, as the Pallas kernel does (pallas_pool.py:159: its max is
+  NaN, which equals no cell), while the rw-sep VJP routes it to a cell.
+  Every other cell agrees in f32 to summation order (1e-5).
+- bf16 sums. Per axis a cell collects at most ceil(k / s) cotangents.
+  This backward adds them in f32 and rounds the level's sum to bf16 once
+  (the W and H stages, then the output); XLA adds them one at a time in
+  bf16, rounding after each add. With at most two per level (every strided
+  S3D-G geometry) both compute round(a + b): bit-equal. With three
+  (k = 3, s = 1) XLA rounds a + b before adding c. Every partial sum on a
+  cell's route is bounded by A, the f32 backward of |g| at that cell (the
+  cotangent mass that reaches it), so each rounding moves it by at most
+  1/2 ulp_bf16(A). Counting the roundings the two sides do not share, the
+  port's two stage roundings (W and H, whose rounded results re-enter a
+  sum) and XLA's three extra ones (a + b on the W, H and T levels), with
+  the final rounding of the output taken as shared, bounds the difference
+  per cell by 2.5 ulp_bf16(A), where ``ulp_bf16(v) = 2**(floor(log2(
+  max(|v|, 2**-126))) - 7)``. Measured in ulps of the cell's own value
+  the difference reaches 256 (a small sum after cancellation), which is
+  the wrong yardstick. tests/test_torch_ops.py holds the plain backward to
+  the rw-sep VJP by this rule; over unique, tie-heavy and -inf inputs at
+  C = 6 and 16 the largest difference was 2.0 ulp_bf16(A).
+
 A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel or
 raises.
 """
@@ -49,6 +79,10 @@ Triple = Tuple[int, int, int]
 # Wrapper calls that launched a kernel: K1 counts forward calls (one launch
 # each), K2 backward calls (two launches each: route, then gather).
 launches = {"max_pool3d_fwd": 0, "max_pool3d_bwd": 0}
+# the same calls by dtype, keyed "<name>.<dtype>" (on the card the main path
+# computes in bf16)
+launches_by_dtype = {f"{name}.{dtype}": 0 for name in launches
+                     for dtype in ("float32", "bfloat16")}
 # plain-version calls on CUDA tensors (the main path must make none)
 plain_cuda_calls = {"max_pool3d_fwd": 0, "max_pool3d_bwd": 0}
 
@@ -186,6 +220,11 @@ def _ptr(t: torch.Tensor) -> int:
     return t.data_ptr()
 
 
+def _count(name: str, dtype: torch.dtype) -> None:
+    launches[name] += 1
+    launches_by_dtype[f"{name}.{str(dtype).split('.')[-1]}"] += 1
+
+
 def _out_shape(shape, k, s, p):
     return (shape[0], *(out_len(d, kk, ss, pp) for d, kk, ss, pp in
                         zip(shape[1:4], k, s, p)), shape[4])
@@ -207,7 +246,7 @@ def max_pool3d_fwd(x: torch.Tensor, k, s, p, *,
     err = lib.rsp_maxpool3d_fwd(_ptr(x), _ptr(out), _DTYPES[x.dtype],
                                 shape_arr, kspec, _stream())
     _build.check(err, "rsp_maxpool3d_fwd")
-    launches["max_pool3d_fwd"] += 1
+    _count("max_pool3d_fwd", x.dtype)
     return out
 
 
@@ -235,7 +274,7 @@ def max_pool3d_bwd(x: torch.Tensor, g: torch.Tensor, k, s, p, *,
     err = lib.rsp_maxpool3d_bwd(_ptr(x), _ptr(g), _ptr(dx), _ptr(route),
                                 _DTYPES[x.dtype], shape_arr, kspec, _stream())
     _build.check(err, "rsp_maxpool3d_bwd")
-    launches["max_pool3d_bwd"] += 1
+    _count("max_pool3d_bwd", x.dtype)
     return dx
 
 

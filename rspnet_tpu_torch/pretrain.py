@@ -3,9 +3,12 @@ card (mirrors the root pretrain.py).
 
     python -m rspnet_tpu_torch.pretrain -c config/pretrain/s3dg.jsonnet \
         -e EXPDIR [-x EXT ...] [-d] [--device {cuda,cpu}] \
-        [--load-checkpoint CKPT] [--load-model CKPT] [--seed N]
+        [--load-checkpoint CKPT] [--load-model CKPT] [--seed N] [--validate]
 
-``--device`` defaults to cuda and raises when no card is present.
+``--device`` defaults to cuda (bf16 compute) and raises when no card is
+present; ``--device cpu`` computes in f32. ``--validate`` loads the
+checkpoint or model given, runs one no-grad statistics epoch and returns
+without training or writing a checkpoint.
 """
 import logging
 import sys
@@ -14,12 +17,10 @@ logger = logging.getLogger(__name__)
 
 
 def main(argv=None):
-    """Run pretraining; returns the engine (its ``step_times`` and state)."""
+    """Run pretraining, or with ``--validate`` one statistics epoch; returns
+    the engine (its ``step_times``, state and meters)."""
     from rspnet_tpu_torch.framework import bootstrap
     args, cfg = bootstrap(argv)
-    if args.validate:
-        raise NotImplementedError("--validate is not ported yet "
-                                  "(see ROADMAP.md)")
 
     from rspnet_tpu_torch.engines.pretrain import PretrainEngine
     engine = PretrainEngine(args, cfg)
@@ -27,6 +28,12 @@ def main(argv=None):
         engine.load_checkpoint(args.load_checkpoint)
     elif args.load_model:
         engine.load_checkpoint(args.load_model, model_only=True)
+
+    if args.validate:
+        logger.info("--validate: running a single no-grad statistics epoch")
+        engine.validate_epoch()
+        return engine
+
     engine.run()
     return engine
 

@@ -8,7 +8,13 @@ CUDA kernels are held against those on the card by chip_smoke.py).
   its window holds one, as there; gradient on
   unique values equal to ``jax.vjp`` of it; on ties equal to the first-match
   routings ``max_pool3d_pallas(..., interpret=True)`` (stride 1) and
-  ``_make_max_pool3d_fm()`` (strided).
+  ``_make_max_pool3d_fm()`` (strided). At S3D-G's geometries the plain
+  backward is pinned to the rw-sep VJP (the JAX S3D-G's default pool) on
+  unique, tie-heavy and -inf inputs: in f32 at rtol / atol 1e-5, in bf16
+  bit-equal at the strided geometries and within 2.5 bf16 ulps of A per
+  cell at stride 1 (A: the f32 backward of |g|; ``ops/max_pool3d.py``
+  derives the bound). Windows that hold a NaN are the one stated
+  deviation.
 - colour augment: ``augment_batch`` at atol 1e-5 over all 24 op orders in
   both geometries; ``fused_color_augment(..., interpret=True)`` at its own
   bf16 tolerance 0.12 (tests/test_pallas_augment.py:52).
@@ -148,6 +154,82 @@ def test_pool_gradient_nan_and_neginf_like_pallas(ishape, k, p):
     np.testing.assert_array_equal(got[~nan], ref[~nan])
     # some cotangent was dropped: the sums differ
     assert not np.isclose(got.sum(dtype=np.float64), g.sum(dtype=np.float64))
+
+
+# S3D-G's four pool geometries plus the stride-1 (1,3,3) window
+S3DG_GEOMETRIES = {
+    "3x3x3_s1": ((3, 3, 3), (1, 1, 1), (1, 1, 1)),
+    "1x3x3_s122": ((1, 3, 3), (1, 2, 2), (0, 1, 1)),
+    "3x3x3_s2": ((3, 3, 3), (2, 2, 2), (1, 1, 1)),
+    "2x2x2_s2": ((2, 2, 2), (2, 2, 2), (0, 0, 0)),
+    "1x3x3_s1": ((1, 3, 3), (1, 1, 1), (0, 1, 1)),
+}
+POOL_SHAPE = (2, 8, 14, 14, 6)
+
+
+def _pool_input(kind: str) -> np.ndarray:
+    rng = np.random.RandomState(11)
+    if kind == "unique":
+        n = int(np.prod(POOL_SHAPE))
+        return (rng.permutation(n).reshape(POOL_SHAPE) / 7.0).astype(
+            np.float32)
+    if kind == "ties":          # ReLU'd halves: windows full of ties
+        return np.maximum(np.round(rng.randn(*POOL_SHAPE) * 2) / 2,
+                          0).astype(np.float32)
+    x = rng.randn(*POOL_SHAPE).astype(np.float32)
+    x[rng.rand(*POOL_SHAPE) < 0.03] = -np.inf
+    return x
+
+
+def _rw_sep_grad(x, g, k, s, p):
+    _, vjp = jax.vjp(lambda v: _max_pool3d_separable_rw(v, k, s, p),
+                     jnp.asarray(x))
+    return vjp(jnp.asarray(g))[0]
+
+
+@pytest.mark.parametrize("kind", ["unique", "ties", "neginf"])
+@pytest.mark.parametrize("geom", sorted(S3DG_GEOMETRIES))
+def test_pool_gradient_f32_like_default_jax_pool(geom, kind):
+    """F7: apart from NaN windows, the first-match backward equals the VJP
+    of the JAX S3D-G's default pool in f32."""
+    k, s, p = S3DG_GEOMETRIES[geom]
+    x = _pool_input(kind)
+    g = np.random.RandomState(12).randn(
+        *tmp.max_pool3d_fwd_plain(torch.from_numpy(x), k, s, p).shape
+    ).astype(np.float32)
+    ref = np.asarray(_rw_sep_grad(x, g, k, s, p))
+    got = tmp.max_pool3d_bwd_plain(torch.from_numpy(x), torch.from_numpy(g),
+                                   k, s, p).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+
+
+def _ulp_bf16(v: np.ndarray) -> np.ndarray:
+    v = np.abs(v.astype(np.float64))
+    return 2.0 ** (np.floor(np.log2(np.maximum(v, 2.0 ** -126))) - 7)
+
+
+@pytest.mark.parametrize("kind", ["unique", "ties", "neginf"])
+@pytest.mark.parametrize("geom", sorted(S3DG_GEOMETRIES))
+def test_pool_gradient_bf16_like_default_jax_pool(geom, kind):
+    """F8: in bf16 the first-match backward equals the default pool's VJP
+    bit for bit at the strided geometries, and at stride 1 lies within
+    2.5 ulp_bf16(A) of it, A the f32 backward of |g|."""
+    k, s, p = S3DG_GEOMETRIES[geom]
+    xt = torch.from_numpy(_pool_input(kind)).to(torch.bfloat16)
+    gt = torch.from_numpy(np.random.RandomState(12).randn(
+        *tmp.max_pool3d_fwd_plain(xt, k, s, p).shape)).to(torch.bfloat16)
+    ref = np.asarray(_rw_sep_grad(
+        jnp.asarray(xt.float().numpy(), jnp.bfloat16),
+        jnp.asarray(gt.float().numpy(), jnp.bfloat16), k, s, p).astype(
+            jnp.float32))
+    got = tmp.max_pool3d_bwd_plain(xt, gt, k, s, p).float().numpy()
+    if any(v > 1 for v in s):
+        np.testing.assert_array_equal(got, ref)
+    else:
+        a = tmp.max_pool3d_bwd_plain(xt.float(), gt.float().abs(), k, s,
+                                     p).numpy()
+        assert np.all(np.abs(got - ref) <= 2.5 * _ulp_bf16(a))
+        assert np.any(got != ref)       # the two do round differently
 
 
 def test_pool_cpu_path_launches_no_kernel():

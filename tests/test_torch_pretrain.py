@@ -2,7 +2,8 @@
 
 ``python -m rspnet_tpu_torch.pretrain --device cpu -d`` on a tiny synthetic
 S3D-G config, in both geometries; the checkpoint it writes resumes; the
-default device (cuda) raises without a card; unported options raise.
+default device (cuda) raises without a card; unported options raise;
+``--validate`` runs one statistics epoch and writes no checkpoint.
 """
 import subprocess
 import sys
@@ -73,9 +74,19 @@ def test_unported_options_raise(tmp_path, monkeypatch, extra):
         pretrain.main(_argv(tmp_path, extra))
 
 
-def test_multi_card_and_validate_raise(tmp_path, monkeypatch):
+def test_multi_card_raises(tmp_path, monkeypatch):
     monkeypatch.chdir(REPO_ROOT)
     with pytest.raises(NotImplementedError):
         pretrain.main(_argv(tmp_path / "a", "", "--ws", "2"))
-    with pytest.raises(NotImplementedError):
-        pretrain.main(_argv(tmp_path / "b", "", "--validate"))
+
+
+def test_validate_runs(tmp_path):
+    """``--validate`` from a fresh model: one statistics epoch, logged, and
+    no checkpoint."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "rspnet_tpu_torch.pretrain",
+         *_argv(tmp_path, ", device_geometry: true", "--validate")],
+        cwd=REPO_ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "Validate statistics: loss" in proc.stdout + proc.stderr
+    assert not list(tmp_path.rglob("*.pth.tar"))
