@@ -36,7 +36,20 @@ Phases, each printing its own lines:
      bf16 on the card, so every K1/K2 launch must be bf16;
   5. ``--validate`` from phase 4's checkpoint: K1 and K3 launched, K2 not,
      finite metrics, and the model, its BN statistics and the queue equal
-     to the checkpoint's bit for bit afterwards.
+     to the checkpoint's bit for bit afterwards (the checkpoint holds the
+     JAX package's layout, read back through ``models/convert.py``);
+  6. the finetune path: ``rspnet_tpu_torch.finetune.main`` on
+     config/finetune/ucf101_s3dg.jsonnet (S3D-G, 101 classes, 64 frames at
+     224², batch 4) with synthetic data and device geometry, ``--mc`` from
+     phase 4's checkpoint, one precise-BN batch, 3 bf16 train steps (``-d``),
+     one validation batch and the final 10-crop validation of one batch
+     (40 clips), counting kernel launches; then ``--validate`` from its
+     checkpoint (the final 10-crop validation alone: K1 launched, K2 and
+     K3 not). Before it, phases 2 and 3 hold K1/K2 bit-equal to their plain
+     versions at the finetune path's 13 pool sites in bf16 (batch 4, and
+     K1 at the final validation's batch 40) and time them, and hold K3 to
+     its plain version on [4, 64, 224, 224, 3] clips (u8 and f32), which
+     the generic instance takes, and time it.
 Then one JSON line with the kernels, the card line again, and the result
 line ``{"ok": true, "device": {...}}`` last. Any failure exits non-zero
 before the result line. Imports nothing of JAX or of rspnet_tpu.
@@ -122,6 +135,14 @@ RAGGED_COLOR = [(5, (7, 9, 13)), (3, (3, 100, 101)), (3, (7, 53, 101)),
 # a clip whose slices do not fit the co-resident grid: the generic instance
 LARGE_COLOR = (2, (64, 480, 640))
 MAIN_BATCH = 64                # batch_size of config/pretrain/s3dg.jsonnet
+# the finetune path (config/finetune/ucf101_s3dg.jsonnet): batch 4 of 64
+# frames, 4x the frames of a pretrain clip after its speed gather, so each
+# pool site's input has 4x the frames; the final validation folds 10 crops
+# of each of 4 clips into a batch of 40
+FT_BATCH, FT_FRAMES, FT_FINAL_BATCH = 4, 64, 40
+FT_POOL_SITES = [(name, (4 * t, h, w, c), k, s, p)
+                 for name, (t, h, w, c), k, s, p in POOL_SITES]
+FT_CONFIG = "config/finetune/ucf101_s3dg.jsonnet"
 
 
 class SmokeError(RuntimeError):
@@ -400,16 +421,18 @@ def check_color_repeat(dev, batch: int, clip) -> None:
 # phase 3: timing at the main path's shapes
 # ---------------------------------------------------------------------------
 
-def check_pool_fwd(dev, batch: int) -> None:
+def check_pool_fwd(dev, batch: int, sites=POOL_SITES,
+                   dtypes=("float32", "bfloat16")) -> None:
     """K1 (default and generic builds) bit-equal to the plain version at
     every site at a main-path batch that time_pool does not take (the
-    fused key pass pools 2B clips), in f32 and bf16."""
+    fused key pass pools 2B clips; the finetune path's final validation
+    pools 10 crops of each clip)."""
     import torch
     from rspnet_tpu_torch.ops import max_pool3d as mp
 
     gen = torch.Generator(device=dev).manual_seed(6)
-    for dtype in (torch.float32, torch.bfloat16):
-        for name, shape4, k, s, p in POOL_SITES:
+    for dtype in (getattr(torch, d) for d in dtypes):
+        for name, shape4, k, s, p in sites:
             x = torch.relu(torch.randn((batch, *shape4), generator=gen,
                                        device=dev)).to(dtype)
             ref = mp.max_pool3d_fwd_plain(x, k, s, p)
@@ -426,10 +449,10 @@ def check_pool_fwd(dev, batch: int) -> None:
     torch.cuda.empty_cache()
 
 
-def time_pool(dev, batch: int, dtype_name: str) -> dict:
-    """K1/K2 at every site at the main path's shapes in one dtype: timed
-    beside the bound, the plain version, the library and the generic
-    instances, and held bit-equal to the plain version on the same
+def time_pool(dev, batch: int, dtype_name: str, sites=POOL_SITES) -> dict:
+    """K1/K2 at every site of ``sites`` (the main path's by default) in one
+    dtype: timed beside the bound, the plain version, the library and the
+    generic instances, and held bit-equal to the plain version on the same
     inputs."""
     import torch
     import torch.nn.functional as F
@@ -443,7 +466,7 @@ def time_pool(dev, batch: int, dtype_name: str) -> dict:
     dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device=dev).manual_seed(2)
     generic = GENERIC
-    for name, shape4, k, s, p in POOL_SITES:
+    for name, shape4, k, s, p in sites:
         x = torch.relu(torch.randn((batch, *shape4), generator=gen,
                                    device=dev)).to(dtype)
         out = mp.max_pool3d_fwd(x, k, s, p)
@@ -502,12 +525,14 @@ def time_pool(dev, batch: int, dtype_name: str) -> dict:
                 f"version (K1 {fwd_eq}, K1 generic {fgen_eq}, K2 {bwd_eq}, "
                 f"K2 generic {gen_eq})")
         del x, out, g, idx
-    print(f"time K1 over the {len(POOL_SITES)} sites, {dtype_name}: "
+    print(f"time K1 over the {len(sites)} sites at batch {batch}, "
+          f"{dtype_name}: "
           f"{tot['fwd']:.4f} ms, "
           f"again {tot['fwd_again']:.4f}, generic instance "
           f"{tot['fwd_generic']:.4f}, F.max_pool3d {tot['fwd_lib']:.4f}, "
           f"bound {tot['fwd_bound']:.4f}", flush=True)
-    print(f"time K2 over the {len(POOL_SITES)} sites, {dtype_name}: "
+    print(f"time K2 over the {len(sites)} sites at batch {batch}, "
+          f"{dtype_name}: "
           f"{tot['bwd']:.4f} ms, "
           f"again {tot['bwd_again']:.4f}, generic instance "
           f"{tot['bwd_generic']:.4f}, aten bwd {tot['bwd_lib']:.4f}, bound "
@@ -667,6 +692,7 @@ def validate_path(exp: str, ckpt: str) -> dict:
     import torch
     from rspnet_tpu_torch import pretrain
     from rspnet_tpu_torch.framework import load_state
+    from rspnet_tpu_torch.models import convert
 
     _reset_counters()
     t0 = time.perf_counter()
@@ -677,11 +703,19 @@ def validate_path(exp: str, ckpt: str) -> dict:
     counts, by_dtype, plain = _read_counters()
     saved = load_state(ckpt)["model"]
     s = engine.state
+
+    def same_model(model, which):
+        want = convert.variables_to_state_dict(
+            {"params": saved[f"params_{which}"],
+             "batch_stats": saved[f"batch_stats_{which}"]})
+        sd = model.state_dict()
+        return (set(want) <= set(sd) and all(
+            torch.equal(sd[k].cpu(), torch.from_numpy(v))
+            for k, v in want.items()))
+
     same = {
-        "model_q": all(torch.equal(v.cpu(), saved["model_q"][k])
-                       for k, v in s.model_q.state_dict().items()),
-        "model_k": all(torch.equal(v.cpu(), saved["model_k"][k])
-                       for k, v in s.model_k.state_dict().items()),
+        "model_q": same_model(s.model_q, "q"),
+        "model_k": same_model(s.model_k, "k"),
         "queue": (torch.equal(s.queue.cpu(), saved["queue"].cpu())
                   and s.queue_ptr == int(saved["queue_ptr"])),
     }
@@ -702,6 +736,111 @@ def validate_path(exp: str, ckpt: str) -> dict:
             f"plain versions ran on CUDA tensors: {plain}")
     require(all(same.values()), f"validate changed the state: {same}")
     return {"launches": counts}
+
+# ---------------------------------------------------------------------------
+# phase 6: the finetune path
+# ---------------------------------------------------------------------------
+
+def _finetune_argv(exp: str, *more: str):
+    # 12 train clips (3 steps of 4), 4 validation clips (one batch; 40
+    # clips in the final 10-crop validation)
+    ext = ('{dataset+: {name: "synthetic", num_samples: 12, '
+           'val_num_samples: 4}, device_geometry: true, bn_recalibrate: 1}')
+    return ["-c", FT_CONFIG, "-e", exp, "-x", ext, "-d", "--seed", "0",
+            "--device", "cuda", *more]
+
+
+def finetune_path(exp: str, pretrained: str, profile: bool = False) -> dict:
+    """Phase 6: ``--mc`` from phase 4's checkpoint, one precise-BN batch,
+    3 train steps, one validation batch and the final 10-crop validation,
+    through the CLI entry point; returns the launches and the times."""
+    import torch
+    from rspnet_tpu_torch import finetune
+
+    argv = _finetune_argv(exp, "--mc", pretrained)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    t0 = time.perf_counter()
+    if profile:
+        from torch.profiler import ProfilerActivity
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts,
+                                    record_shapes=True) as prof:
+            engine, final = finetune.main(argv)
+            torch.cuda.synchronize()
+    else:
+        engine, final = finetune.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, by_dtype, plain = _read_counters()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = engine.step_times
+    train = {k: engine.train_meters[k].avg for k in ("loss", "acc1", "acc5")}
+    val = engine.validation
+    best = os.path.exists(os.path.join(exp, "model_best.pth.tar"))
+    print(f"finetune path: batch {FT_BATCH}, {FT_FRAMES} frames, compute "
+          f"dtype {engine.dtype}, {len(steps)} steps, step ms "
+          f"{[round(t, 1) for t in steps]}, wall {wall:.1f} s, peak memory "
+          f"{peak:.2f} GiB, train loss {train['loss']:.4f} acc1 "
+          f"{train['acc1']:.2f} acc5 {train['acc5']:.2f}, validation "
+          f"{ {k: round(v, 4) for k, v in val.items()} }, model_best "
+          f"{best}, final {FT_FINAL_BATCH // FT_BATCH}-crop validation "
+          f"{ {k: round(v, 4) for k, v in final.items()} }, launches "
+          f"{counts}, K1/K2 launches by dtype {by_dtype}, plain calls on "
+          f"cuda {plain}", flush=True)
+    require(all(math.isfinite(v) for v in train.values()),
+            f"finetune train metrics not finite: {train}")
+    require(len(steps) == 3, f"finetune ran {len(steps)} steps, not 3")
+    require(engine.dtype == torch.bfloat16,
+            f"finetune computes in {engine.dtype}, not bf16")
+    require(val["count"] == FT_BATCH and math.isfinite(val["loss"]),
+            f"finetune validation: {val}")
+    require(final["count"] == FT_BATCH and math.isfinite(final["loss"]),
+            f"final validation: {final}")
+    require(all(v > 0 for v in counts.values()),
+            f"a kernel of the finetune path was not launched: {counts}")
+    require(not any(n for key, n in by_dtype.items()
+                    if not key.endswith(".bfloat16")),
+            f"K1/K2 launched off bf16 on the finetune path: {by_dtype}")
+    require(not any(plain.values()),
+            f"plain versions ran on CUDA tensors: {plain}")
+    if profile:
+        report_profile(prof, wall)
+    return {"launches": counts, "steps_ms": steps, "peak_gib": peak,
+            "checkpoint": os.path.join(exp, "checkpoint.pth.tar")}
+
+
+def finetune_validate_path(exp: str, ckpt: str) -> dict:
+    """Phase 6, second leg: ``--validate --load-checkpoint``, the final
+    10-crop validation of the trained weights alone: K1 launched, K2 and
+    K3 not."""
+    import torch
+    from rspnet_tpu_torch import finetune
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    t0 = time.perf_counter()
+    engine, final = finetune.main(_finetune_argv(
+        exp, "--validate", "--load-checkpoint", ckpt))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, by_dtype, plain = _read_counters()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"finetune validate: {FT_FINAL_BATCH} clips of {FT_FRAMES} frames "
+          f"in one batch, wall {wall:.1f} s, peak memory {peak:.2f} GiB, "
+          f"metrics { {k: round(v, 4) for k, v in final.items()} }, "
+          f"launches {counts}, K1/K2 launches by dtype {by_dtype}, plain "
+          f"calls on cuda {plain}", flush=True)
+    require(engine is None and final["count"] == FT_BATCH
+            and math.isfinite(final["loss"]), f"final validation: {final}")
+    require(counts["max_pool3d_fwd"] > 0, f"K1 not launched: {counts}")
+    require(counts["max_pool3d_bwd"] == 0 and counts["color_augment"] == 0,
+            f"the final validation launched K2 or K3: {counts}")
+    require(by_dtype["max_pool3d_fwd.float32"] == 0,
+            f"K1 launched off bf16: {by_dtype}")
+    require(not any(plain.values()),
+            f"plain versions ran on CUDA tensors: {plain}")
+    return {"launches": counts, "wall_s": wall, "peak_gib": peak}
 
 
 _KERNEL_GROUPS = [
@@ -803,7 +942,10 @@ def main(argv=None) -> int:
         *(check_color(dev, b, clip) for b, clip in RAGGED_COLOR),
         check_color(dev, *LARGE_COLOR, resident=False),
         check_color(dev, 8, COLOR_CLIP, resident=False,
-                    build="color_augment_generic"))
+                    build="color_augment_generic"),
+        # the finetune path's clips: their 64 frames do not fit the
+        # resident instance in f32 or u8 (PERF.md §6)
+        check_color(dev, FT_BATCH, (FT_FRAMES, 224, 224), resident=False))
     check_color_repeat(dev, MAIN_BATCH, COLOR_CLIP)
 
     check_pool_fwd(dev, batch=2 * MAIN_BATCH)                     # phase 3
@@ -813,6 +955,13 @@ def main(argv=None) -> int:
     from rspnet_tpu_torch.ops import k3_timeline
     k3_timeline.main(["--batch", str(MAIN_BATCH)])
     torch.cuda.empty_cache()
+    # the finetune path's shapes: K1 at the final validation's batch, K1/K2
+    # timed at the train step's, K3 on its clips
+    check_pool_fwd(dev, FT_FINAL_BATCH, sites=FT_POOL_SITES,
+                   dtypes=("bfloat16",))
+    pool_ft = time_pool(dev, FT_BATCH, "bfloat16", sites=FT_POOL_SITES)
+    color_ft = time_color(dev, batch=FT_BATCH, frames=FT_FRAMES, size=224)
+    torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as exp:
         trained = main_path(MAIN_BATCH, os.path.join(exp, "train"),  # 4
@@ -820,7 +969,13 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         validate_path(os.path.join(exp, "validate"),                 # 5
                       trained["checkpoint"])
-    launches = trained["launches"]
+        torch.cuda.empty_cache()
+        finetuned = finetune_path(os.path.join(exp, "finetune"),      # 6
+                                  trained["checkpoint"], args.profile)
+        torch.cuda.empty_cache()
+        finetune_validate_path(os.path.join(exp, "finetune_validate"),
+                               finetuned["checkpoint"])
+    launches, launches_ft = trained["launches"], finetuned["launches"]
 
     def pool_row(name, key, replaces, err):
         # the main path's dtype (bf16) first, the f32 times beside it
@@ -834,7 +989,14 @@ def main(argv=None) -> int:
                 "library_ms": bf[f"{key}_lib"], "ms_f32": f32[key],
                 "plain_ms_f32": f32[f"{key}_plain"],
                 "bound_ms_f32": f32[f"{key}_bound"],
-                "library_ms_f32": f32[f"{key}_lib"]}
+                "library_ms_f32": f32[f"{key}_lib"],
+                # the finetune path: its launches, its bf16 shapes
+                "launches_finetune": launches_ft[name],
+                "ms_finetune": pool_ft[key],
+                "plain_ms_finetune": pool_ft[f"{key}_plain"],
+                "bound_ms_finetune": pool_ft[f"{key}_bound"],
+                "bound_by_finetune": pool_ft["by"][key],
+                "library_ms_finetune": pool_ft[f"{key}_lib"]}
 
     kernels = [
         pool_row("max_pool3d_fwd", "fwd", "rspnet_tpu/ops/pallas_pool.py:152",
@@ -847,7 +1009,12 @@ def main(argv=None) -> int:
          "launches": launches["color_augment"], "max_abs_err": err_color,
          "dtype": "float32", "ms": color["ms"],
          "plain_ms": color["plain_ms"], "bound_ms": color["bound_ms"],
-         "bound_by": color["bound_by"], "library_ms": None},
+         "bound_by": color["bound_by"], "library_ms": None,
+         "launches_finetune": launches_ft["color_augment"],
+         "ms_finetune": color_ft["ms"], "plain_ms_finetune":
+         color_ft["plain_ms"], "bound_ms_finetune": color_ft["bound_ms"],
+         "bound_by_finetune": color_ft["bound_by"],
+         "library_ms_finetune": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")

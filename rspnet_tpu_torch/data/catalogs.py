@@ -233,8 +233,12 @@ def build_catalog(cfg, split: str):
         return SmthSmth(root, cfg.get_string("dataset.annotation_path"),
                         split=split)
     if name == "synthetic":
+        num_samples = cfg.get_int("dataset.num_samples", 256)
+        if split != "train":
+            # the port's own key: a validation split of another size
+            num_samples = cfg.get_int("dataset.val_num_samples", num_samples)
         return Synthetic(
-            num_samples=cfg.get_int("dataset.num_samples", 256),
+            num_samples=num_samples,
             num_classes=cfg.get_int("dataset.num_classes", 10),
             split=split,
             num_frames=cfg.get_int("dataset.num_frames", 64),

@@ -1,0 +1,395 @@
+"""Supervised finetune engine on one card (port of
+rspnet_tpu/engines/finetune.py; reference: finetune.py:149-472).
+
+Train and per-epoch validation, then (the CLI) a final multi-crop
+validation on ``model_best``. The hot loop:
+
+  host loader (decode [+ geometry], uint8)
+    -> device augment (ops.augment.augment_batch: crop_resize + kernel K3,
+       gray before the jitter, no blur)
+    -> classifier train step (engines.classifier: S3D-G through K1/K2)
+
+Validation: the centre crop and normalize (ops.augment.eval_preprocess,
+plain torch) and the eval step (K1 only); multi-crop clips arrive
+time-concatenated and the step averages the logits over crops.
+
+Compute dtype from the device, as in engines/pretrain.py: bf16 on the
+card (the JAX engine's choice on its accelerator, finetune.py:65-67), f32
+on the CPU. Parameters, BN statistics, the optimizer state and the
+checkpoints stay f32.
+
+Checkpoints: ``epoch, arch, model {params, batch_stats}, best_acc1,
+optimizer, scheduler``, the JAX engine's layout (finetune.py:373-384)
+with the torch optimizer state, so the JAX package's ``load_model_only``
+reads them; this engine reads the JAX package's files the same way.
+
+Not ported yet (each raises NotImplementedError): ``model_type`` other
+than ``multitask``, more than one card, ``cache_device`` and the 2-D
+``parallel:`` layout.
+"""
+from __future__ import annotations
+
+import logging
+import time
+
+import numpy as np
+import torch
+
+from ..config import ConfigTree
+from ..data.pipeline import build_loader, prefetch_iterator
+from ..framework import CheckpointManager, MeterGroup, MetricSpool, load_state
+from ..framework.checkpoint import load_optimizer_state
+from ..framework.lr_schedule import (build_optimizer, build_scheduler,
+                                     set_opt_lr)
+from ..models import get_model_class
+from ..models.convert import load_variables, state_dict_to_variables
+from ..moco import MultiTaskWrapper
+from ..ops.augment import (augment_batch, center_crop_params, eval_preprocess,
+                           sample_train_params)
+from . import classifier
+from .normalization import dataset_normalization
+from .pretrain import resolve_device
+from .transfer import load_pretrained_encoder, merge_encoder_into
+
+logger = logging.getLogger(__name__)
+
+TRAIN_KEYS = ("loss", "acc1", "acc5")
+SUM_KEYS = ("loss_sum", "correct1", "correct5", "count")
+
+
+def summary_writer(logdir):
+    """A tensorboardX ``SummaryWriter``, or None with a warning when
+    tensorboardX is not installed (the training engine asks once)."""
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError:
+        logger.warning("tensorboardX is not installed: no TensorBoard "
+                       "scalars are written")
+        return None
+    return SummaryWriter(logdir=str(logdir))
+
+
+def build_classifier_model(cfg: ConfigTree, dtype=None):
+    """-> (model, model_type); ``multitask`` only (rspnet_tpu/engines/
+    finetune.py:36-51)."""
+    model_cfg = cfg.get_config("model").as_plain_dict()
+    arch = model_cfg.pop("arch")
+    if model_cfg:
+        raise NotImplementedError(f"model keys {sorted(model_cfg)} are not "
+                                  f"ported yet")
+    num_classes = cfg.get_int("dataset.num_classes")
+    model_type = cfg.get_string("model_type", "1stream")
+    if model_type == "multitask":
+        return MultiTaskWrapper(get_model_class(arch)(dtype=dtype),
+                                num_classes=num_classes, dtype=dtype,
+                                finetune=True), model_type
+    if model_type == "1stream":
+        raise NotImplementedError(
+            "model_type '1stream' (the backbone's own dropout classifier) "
+            "is not ported yet (see ROADMAP.md)")
+    raise ValueError(f'Unrecognized model_type "{model_type}"')
+
+
+def _unsupported(cfg: ConfigTree, args) -> None:
+    def nope(what):
+        raise NotImplementedError(f"{what} is not ported yet (see ROADMAP.md)")
+
+    if int(getattr(args, "world_size", 1)) > 1:
+        nope("training on more than one card (--ws > 1)")
+    if cfg.get("parallel", None) is not None:
+        nope("the 2-D `parallel:` layout")
+    if cfg.get("cache_device", False) not in (False, None):
+        nope("cache_device")
+
+
+class FinetuneEngine:
+    def __init__(self, args, cfg: ConfigTree, final_validate: bool = False):
+        self.args = args
+        self.cfg = cfg
+        self.debug = bool(getattr(args, "debug", False))
+        self.final_validate = final_validate
+        _unsupported(cfg, args)
+        self.device = resolve_device(getattr(args, "device", "cuda"))
+        self.dtype = torch.bfloat16 if self.device.type == "cuda" else None
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
+        logger.info("Device %s; compute dtype %s", self.device,
+                    self.dtype or torch.float32)
+
+        seed = cfg.get_int("seed", 0)
+        torch.manual_seed(seed)
+        model, self.model_type = build_classifier_model(cfg, self.dtype)
+        self.model = model.to(self.device,
+                              memory_format=torch.channels_last_3d)
+        self.arch = cfg.get_string("model.arch")
+        # the linear probe: the train step freezes the backbone
+        self.only_train_fc = cfg.get_bool("only_train_fc", False)
+        # precise-BN batches before the first epoch of a fresh run
+        self.bn_recalibrate = cfg.get_int("bn_recalibrate", 0)
+
+        self.learning_rate = cfg.get_float("optimizer.lr")
+        self.num_epochs = cfg.get_int("num_epochs")
+        self.optimizer = build_optimizer(cfg.get_config("optimizer"),
+                                         self.model.parameters(),
+                                         self.learning_rate)
+        self.scheduler = build_scheduler(
+            cfg.get_string("optimizer.schedule", "none"), self.learning_rate,
+            num_epochs=self.num_epochs,
+            milestones=cfg.get_list("optimizer.milestones", []),
+            patience=cfg.get_int("optimizer.patience", 10),
+            # reference finetune cosine floors at lr/1000 (finetune.py:228)
+            eta_min=self.learning_rate / 1000.0)
+
+        if not final_validate:
+            self.train_loader = build_loader(cfg, "train", debug=self.debug)
+        self.validate_loader = build_loader(cfg, "val",
+                                            final_validate=final_validate)
+
+        tt = cfg.get_config("temporal_transforms")
+        self.n_crop = (tt.get_int("validate.final_n_crop") if final_validate
+                       else tt.get_int("validate.n_crop", 1))
+        self.size = cfg.get_int("spatial_transforms.size")
+
+        self.checkpoint_manager = CheckpointManager(args.experiment_dir,
+                                                    keep_interval=None)
+        self.log_interval = cfg.get_int("log_interval", 10)
+        self.best_acc1 = 0.0
+        self.current_epoch = 0
+        self.rng = np.random.default_rng(seed)
+        self.writer = None
+        if args.experiment_dir is not None and not final_validate:
+            self.writer = summary_writer(args.experiment_dir)
+
+        st = cfg.get_config("spatial_transforms")
+        self.aug = dict(
+            gray_p=st.get_float("gray_scale", 0.0),
+            jitter=(st.get_float("color_jitter.brightness", 0.0),
+                    st.get_float("color_jitter.contrast", 0.0),
+                    st.get_float("color_jitter.saturation", 0.0),
+                    st.get_float("color_jitter.hue", 0.0)),
+            h_flip=st.get_float("h_flip", 0.5))
+        # the classification pipeline normalizes under --debug too
+        # (reference :222-227)
+        self.normalize = dataset_normalization(cfg)
+        # per-step host-clock times (ms), each ended by a device sync; the
+        # last epoch's train meters and validation metrics
+        self.step_times = []
+        self.train_meters = None
+        self.validation = {}
+
+    # -- device preprocessing ---------------------------------------------
+    # Device-geometry loaders ship decode-resolution clips and the crop box
+    # is applied here; host-geometry clips arrive cropped (identity boxes).
+    def _train_augment(self, clip_u8: np.ndarray) -> torch.Tensor:
+        B, _, H, W, _ = clip_u8.shape
+        dev_geom = getattr(self.train_loader.cfg, "device_geometry", False)
+        p = sample_train_params(
+            self.rng, B, [(H, W)],
+            crop_area=self.train_loader.cfg.crop_area if dev_geom
+            else (1.0, 1.0),
+            h_flip=self.aug["h_flip"], gray_p=self.aug["gray_p"],
+            jitter=self.aug["jitter"])
+        if not dev_geom:
+            p.boxes[:] = [0, 0, H, W]
+        mean, std = self.normalize
+        return augment_batch(
+            torch.from_numpy(clip_u8).to(self.device), p,
+            size=(self.size, self.size), mean=mean, std=std,
+            gray_before_jitter=True, use_blur=False,
+            identity_geometry=not dev_geom and (H, W) == (self.size,
+                                                          self.size))
+
+    def _eval_preprocess(self, clip_u8: np.ndarray) -> torch.Tensor:
+        B, _, H, W, _ = clip_u8.shape
+        p = center_crop_params(B, [(H, W)])
+        if not getattr(self.validate_loader.cfg, "device_geometry", False):
+            p.boxes[:] = [0, 0, H, W]
+        mean, std = self.normalize
+        return eval_preprocess(torch.from_numpy(clip_u8).to(self.device),
+                               p.boxes, size=(self.size, self.size),
+                               mean=mean, std=std)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # -- loading ----------------------------------------------------------
+    def load_moco_checkpoint(self, path) -> None:
+        """``--mc``: the backbone from a pretrain checkpoint of either
+        package or of the reference; ``fc`` stays as built."""
+        merge_encoder_into(self.model, load_pretrained_encoder(path,
+                                                               self.arch))
+
+    def load_checkpoint(self, path) -> None:
+        """Resume (``--load-checkpoint``): model, optimizer, scheduler,
+        epoch and best_acc1; the optimizer state must be this package's."""
+        states = load_state(path)
+        if states["arch"] != self.arch:
+            raise ValueError(
+                f'Checkpoint arch {states["arch"]!r} != {self.arch!r}')
+        load_optimizer_state(self.optimizer, states["optimizer"], path)
+        self._load_model(states["model"])
+        self.scheduler.load_state_dict(states["scheduler"])
+        self.current_epoch = int(states["epoch"])
+        self.best_acc1 = float(states["best_acc1"])
+        logger.info("Loaded checkpoint %s (epoch %d)", path,
+                    self.current_epoch)
+
+    def load_model_only(self, path) -> None:
+        """The classifier's weights and BN statistics from a finetune
+        checkpoint of either package."""
+        self._load_model(load_state(path)["model"])
+
+    def _load_model(self, m) -> None:
+        load_variables(self.model, {"params": m["params"],
+                                    "batch_stats": m["batch_stats"]},
+                       self.arch)
+
+    def recalibrate_bn(self) -> None:
+        """Precise-BN over ``bn_recalibrate`` augmented train batches
+        (engines/precise_bn.py), with the augment stream pinned to
+        seed + 3 so that every run sees the same calibration batches
+        (rspnet_tpu/engines/finetune.py:253-258); the training stream is
+        restored afterwards."""
+        n = self.bn_recalibrate
+        if not n:
+            return
+        from .precise_bn import recalibrate_bn_stats
+
+        def batch_iter():
+            count = epoch = 0
+            while count < n:
+                if len(self.train_loader) == 0:
+                    raise ValueError(
+                        "bn_recalibrate: train loader yields no batches "
+                        f"({self.train_loader.num_samples} samples < "
+                        "batch?)")
+                self.train_loader.set_epoch(10_000 + epoch)
+                epoch += 1
+                it = iter(self.train_loader)
+                try:
+                    for b in it:
+                        if count >= n:
+                            break
+                        yield self._train_augment(b["clips"][0])
+                        count += 1
+                finally:
+                    it.close()
+
+        saved_rng, self.rng = self.rng, np.random.default_rng(
+            self.cfg.get_int("seed", 0) + 3)
+        logger.info("Precise-BN: recalibrating BN statistics over %d "
+                    "batches", n)
+        t0 = time.perf_counter()
+        try:
+            recalibrate_bn_stats(self.model, batch_iter())
+        finally:
+            self.rng = saved_rng
+        logger.info("Precise-BN done in %.1fs", time.perf_counter() - t0)
+
+    # -- epochs -----------------------------------------------------------
+    def train_epoch(self, epoch: int) -> MeterGroup:
+        meters = MeterGroup(TRAIN_KEYS)
+        self.train_loader.set_epoch(epoch)
+        n_batches = len(self.train_loader)
+        t_epoch = time.perf_counter()
+        spool = MetricSpool()
+        for i, batch in enumerate(prefetch_iterator(iter(self.train_loader))):
+            t0 = time.perf_counter()
+            clips = self._train_augment(batch["clips"][0])
+            labels = torch.from_numpy(batch["labels"]).to(self.device)
+            metrics = classifier.train_step(
+                self.model, self.optimizer, clips, labels,
+                only_train_fc=self.only_train_fc)
+            spool.append(torch.stack([metrics[k].float()
+                                      for k in TRAIN_KEYS]),
+                         n=batch["labels"].shape[0])
+            self._sync()
+            self.step_times.append((time.perf_counter() - t0) * 1000.0)
+            if i % self.log_interval == 0:
+                logger.info("Train [%d/%d][%d/%d]\t%s step=%.1fms", epoch,
+                            self.num_epochs, i, n_batches,
+                            "\t".join(f"{k}={v:.4f}" for k, v in
+                                      zip(TRAIN_KEYS, spool.last())),
+                            self.step_times[-1])
+            if self.debug and i >= 2:
+                break
+        for row, n in spool.rows():
+            meters.update(dict(zip(TRAIN_KEYS, row)), n=n)
+        logger.info("Train epoch %d done in %.1fs", epoch,
+                    time.perf_counter() - t_epoch)
+        if self.writer is not None:
+            for k in TRAIN_KEYS:
+                self.writer.add_scalar(f"train/{k}", meters[k].avg, epoch)
+            self.writer.add_scalar("train/lr", self.scheduler.lr, epoch)
+        return meters
+
+    def validate_epoch(self, epoch: int, prefix: str = "val") -> dict:
+        self.validate_loader.set_epoch(epoch)
+        t0 = time.perf_counter()
+        spool = MetricSpool()
+        for i, batch in enumerate(prefetch_iterator(
+                iter(self.validate_loader))):
+            clips = self._eval_preprocess(batch["clips"][0])
+            labels = torch.from_numpy(batch["labels"]).to(self.device)
+            mask = torch.from_numpy(batch["mask"]).to(self.device)
+            sums = classifier.eval_step(self.model, clips, labels, mask,
+                                        n_crop=self.n_crop)
+            spool.append(torch.stack([sums[k].float() for k in SUM_KEYS]))
+            if self.debug and i >= 2:
+                break
+        totals = dict(zip(SUM_KEYS, np.sum([row for row, _ in spool.rows()],
+                                           axis=0)))
+        count = max(float(totals["count"]), 1.0)
+        loss = float(totals["loss_sum"]) / count
+        acc1 = float(totals["correct1"]) / count * 100.0
+        acc5 = float(totals["correct5"]) / count * 100.0
+        logger.info("Validate epoch %d: loss=%.4f acc1=%.2f acc5=%.2f "
+                    "(%d samples, %.1fs)", epoch, loss, acc1, acc5,
+                    int(count), time.perf_counter() - t0)
+        if self.writer is not None:
+            self.writer.add_scalar(f"{prefix}/loss", loss, epoch)
+            self.writer.add_scalar(f"{prefix}/acc1", acc1, epoch)
+            self.writer.add_scalar(f"{prefix}/acc5", acc5, epoch)
+        return {"loss": loss, "acc1": acc1, "acc5": acc5,
+                "count": int(count)}
+
+    def run(self) -> float:
+        num_epochs = 1 if self.debug else self.num_epochs
+        try:
+            if self.current_epoch == 0:  # a fresh run, not a resume
+                self.recalibrate_bn()
+            for epoch in range(self.current_epoch + 1, num_epochs + 1):
+                self.current_epoch = epoch
+                self.train_meters = self.train_epoch(epoch)
+                val = self.validation = self.validate_epoch(epoch)
+                # every scheduler takes (and the non-plateau ones ignore)
+                # the metric
+                set_opt_lr(self.optimizer, self.scheduler.step(val["loss"]))
+                is_best = val["acc1"] > self.best_acc1
+                self.best_acc1 = max(self.best_acc1, val["acc1"])
+                self.save_checkpoint(epoch, is_best)
+        finally:
+            self.close()
+        return self.best_acc1
+
+    def close(self) -> None:
+        """Release the TensorBoard writer (its thread and file)."""
+        if self.writer is not None:
+            self.writer.close()
+            self.writer = None
+
+    def save_checkpoint(self, epoch: int, is_best: bool) -> None:
+        variables = state_dict_to_variables(self.model.state_dict(),
+                                            self.arch)
+        self.checkpoint_manager.save({
+            "epoch": epoch,
+            "arch": self.arch,
+            "model": {"params": variables["params"],
+                      "batch_stats": variables["batch_stats"]},
+            "best_acc1": self.best_acc1,
+            "optimizer": self.optimizer.state_dict(),
+            "scheduler": self.scheduler.state_dict(),
+        }, is_best, epoch)

@@ -11,8 +11,10 @@ The hot loop:
 ``moco.step.eval_step``: metrics only, nothing updated.
 
 Run-dir artifacts: checkpoint.pth.tar (epoch / arch / model / best_loss /
-optimizer / scheduler, the JAX engine's top-level keys) and the
-model_best.pth.tar hard link.
+optimizer / scheduler) and the model_best.pth.tar hard link. ``model`` is
+in the JAX engine's layout (``save_checkpoint``), so the JAX package's
+``load_pretrained_encoder`` and ``load_checkpoint(model_only=True)`` read
+it, and this engine reads the JAX engine's files.
 
 Compute dtype, chosen from the device as the JAX engine chooses it from its
 platform (rspnet_tpu/engines/pretrain.py:69-71): bf16 on the card, f32 on
@@ -36,8 +38,10 @@ import torch
 from ..config import ConfigTree
 from ..data.pipeline import build_loader, prefetch_iterator
 from ..framework import CheckpointManager, MeterGroup, load_state
+from ..framework.checkpoint import load_optimizer_state
 from ..framework.environment import scale_learning_rate
 from ..framework.lr_schedule import build_optimizer, build_scheduler, set_opt_lr
+from ..models.convert import load_variables, state_dict_to_variables
 from ..moco import (METRIC_KEYS, build_moco_model, eval_step, init_moco_state,
                     train_step)
 from ..ops.augment import augment_batch, sample_train_params
@@ -243,16 +247,24 @@ class PretrainEngine:
 
     # -- checkpointing --------------------------------------------------------
     def save_checkpoint(self, epoch: int, is_best: bool) -> None:
+        """The JAX engine's layout (rspnet_tpu/engines/pretrain.py:388-402):
+        both encoders as JAX ``params``/``batch_stats`` trees, the queue
+        and its pointer; ``step`` beside them (the JAX package reads past
+        it); the torch optimizer state under ``optimizer``."""
         s = self.state
+        q = state_dict_to_variables(s.model_q.state_dict(), self.arch)
+        k = state_dict_to_variables(s.model_k.state_dict(), self.arch)
         state = {
             "epoch": epoch,
             "arch": self.arch,
             "model": {
-                "model_q": s.model_q.state_dict(),
-                "model_k": s.model_k.state_dict(),
-                "queue": s.queue,
-                "queue_ptr": s.queue_ptr,
-                "step": s.step,
+                "params_q": q["params"],
+                "params_k": k["params"],
+                "batch_stats_q": q["batch_stats"],
+                "batch_stats_k": k["batch_stats"],
+                "queue": s.queue.detach().cpu(),
+                "queue_ptr": np.asarray(s.queue_ptr, np.int32),
+                "step": np.asarray(s.step, np.int64),
             },
             "best_loss": self.best_loss,
             "optimizer": s.optimizer.state_dict(),
@@ -261,19 +273,29 @@ class PretrainEngine:
         self.checkpoint_manager.save(state, is_best, epoch)
 
     def load_checkpoint(self, path, model_only: bool = False) -> None:
+        """Either package's pretrain checkpoint; a full resume needs this
+        package's optimizer state."""
         ckpt = load_state(path)
         if ckpt.get("arch") != self.arch:
             raise ValueError(
                 f"Checkpoint arch {ckpt.get('arch')!r} != {self.arch!r}")
-        m = ckpt["model"]
         s = self.state
-        s.model_q.load_state_dict(m["model_q"])
-        s.model_k.load_state_dict(m["model_k"])
-        s.queue.copy_(m["queue"])
-        s.queue_ptr = int(m["queue_ptr"])
-        s.step = int(m.get("step", 0))
         if not model_only:
-            s.optimizer.load_state_dict(ckpt["optimizer"])
+            load_optimizer_state(s.optimizer, ckpt["optimizer"], path)
+        m = ckpt["model"]
+        s.step = int(m.get("step", 0))
+        for model, which in ((s.model_q, "q"), (s.model_k, "k")):
+            load_variables(model, {"params": m[f"params_{which}"],
+                                   "batch_stats": m[f"batch_stats_{which}"]},
+                           self.arch)
+            # the JAX layout has no BN batch counters: each encoder's BNs
+            # run once in train mode per step
+            for mod in model.modules():
+                if isinstance(mod, torch.nn.modules.batchnorm._BatchNorm):
+                    mod.num_batches_tracked.fill_(s.step)
+        s.queue.copy_(torch.as_tensor(np.asarray(m["queue"])))
+        s.queue_ptr = int(m["queue_ptr"])
+        if not model_only:
             self.scheduler.load_state_dict(ckpt["scheduler"])
             self.current_epoch = int(ckpt["epoch"]) + 1
             self.best_loss = float(ckpt.get("best_loss", float("inf")))

@@ -5,12 +5,13 @@ from .bootstrap import bootstrap, initialize_seed
 from .checkpoint import CheckpointManager, load_state, save_state
 from .environment import scale_learning_rate, ulimit_n_max
 from .logging import set_logging_basic_config
-from .meters import AverageMeter, MeterGroup
-from .metrics import accuracy
+from .meters import AverageMeter, MeterGroup, MetricSpool
+from .metrics import accuracy, masked_topk_correct
 
 __all__ = [
     "Args", "BaseArgs", "get_timestamp", "bootstrap", "initialize_seed",
     "CheckpointManager", "load_state", "save_state",
     "scale_learning_rate", "ulimit_n_max", "set_logging_basic_config",
-    "AverageMeter", "MeterGroup", "accuracy",
+    "AverageMeter", "MeterGroup", "MetricSpool", "accuracy",
+    "masked_topk_correct",
 ]

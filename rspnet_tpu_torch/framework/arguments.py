@@ -3,7 +3,7 @@ rspnet_tpu/framework/arguments.py, plus ``--device``).
 
 Mirrors the reference CLI contract (reference: framework/arguments.py,
 arguments.py): ``-c/-x/-d/-e``, ``--load-checkpoint/--load-model/--validate/
---seed/--ws/--continue/--no-scale-lr``, run dirs named
+--mc/--seed/--ws/--continue/--no-scale-lr``, run dirs named
 ``run_<N>_<timestamp>`` under the experiment dir, a ``run.sh`` replay script,
 and ``resolve_continue`` picking up the latest run's config + checkpoint.
 
@@ -123,6 +123,7 @@ class Args(BaseArgs):
         self.load_checkpoint: Optional[Path] = None
         self.load_model: Optional[Path] = None
         self.validate: bool = False
+        self.moco_checkpoint: Optional[str] = None
         self.seed: Optional[int] = None
         self.world_size: int = 1
         self.device: str = "cuda"
@@ -138,6 +139,9 @@ class Args(BaseArgs):
                             help="checkpoint to load model weights from")
         parser.add_argument("--validate", action="store_true",
                             help="Only run final validate then exit")
+        parser.add_argument("--mc", "--moco-checkpoint",
+                            dest="moco_checkpoint",
+                            help="load moco pretrained checkpoint")
         parser.add_argument("--seed", type=int, help="random seed")
         parser.add_argument("--ws", "--world-size", dest="world_size",
                             type=int, default=1,

@@ -53,3 +53,43 @@ class MeterGroup:
 
     def __str__(self) -> str:
         return "\t".join(str(m) for m in self.meters.values())
+
+
+class MetricSpool:
+    """Per-step metric rows kept on the device and read in bulk (port of
+    rspnet_tpu/framework/meters.py:84).
+
+    Each step appends one stacked [n_metrics] device tensor; a ``.item()``
+    per scalar would wait for the stream at every step. ``last`` reads one
+    row (the log interval's line); ``rows`` stacks what is pending and
+    reads it in one transfer, at most ``chunk`` rows at a time.
+    """
+
+    def __init__(self, chunk: int = 256):
+        self.chunk = chunk
+        self._pending = []   # (device [n_metrics] row, n)
+        self._rows = []      # (list of floats, n), already read
+
+    def append(self, row, n: int = 1) -> None:
+        self._pending.append((row, n))
+        if len(self._pending) >= self.chunk:
+            self.flush()
+
+    def flush(self) -> None:
+        if not self._pending:
+            return
+        import torch
+        vals = torch.stack([r for r, _ in self._pending]).float().cpu()
+        self._rows.extend(zip(vals.tolist(), (n for _, n in self._pending)))
+        self._pending = []
+
+    def last(self) -> list:
+        """The latest row, as floats (one transfer)."""
+        if self._pending:
+            return self._pending[-1][0].float().cpu().tolist()
+        return self._rows[-1][0]
+
+    def rows(self):
+        """Read everything still pending; -> list of (row, n)."""
+        self.flush()
+        return self._rows

@@ -1,14 +1,16 @@
-"""MultiTaskWrapper: backbone + two projection heads (port of
-rspnet_tpu/moco/wrapper.py, pretrain mode, ``fc_type: linear``).
+"""MultiTaskWrapper: backbone + two projection heads, or the finetune
+classifier (port of rspnet_tpu/moco/wrapper.py, ``fc_type: linear``).
 
-fc1 (A-VID head) and fc2 (RSP head) each global-average-pool the backbone's
-feature map and project it linearly; both outputs are L2-normalized.
+Pretrain mode: fc1 (A-VID head) and fc2 (RSP head) each global-average-pool
+the backbone's feature map and project it linearly; both outputs are
+L2-normalized. Finetune mode (``finetune=True``, wrapper.py:93-94,
+:130-131): one ``fc`` classifier on the pooled features, no normalization.
 With a bf16 compute ``dtype`` the heads and the normalization run in bf16,
 as the JAX heads do (wrapper.py:21-28, :76).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -17,9 +19,17 @@ from torch import nn
 from ..models.common import global_avg_pool
 
 
+def dense(x: torch.Tensor, linear: nn.Linear,
+          dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """flax ``nn.Dense(dtype=...)``: input, weight and bias cast to
+    ``dtype`` (the input's if None), the bias added to the rounded
+    product."""
+    dt = dtype or x.dtype
+    return F.linear(x.to(dt), linear.weight.to(dt)) + linear.bias.to(dt)
+
+
 class LinearFc(nn.Module):
-    """flax ``nn.Dense(dtype=...)`` on the pooled features: input, weight
-    and bias cast to ``dtype``, the bias added to the rounded product."""
+    """``dense`` on the pooled features."""
 
     def __init__(self, in_features: int, moco_dim: int,
                  dtype: Optional[torch.dtype] = None):
@@ -28,10 +38,7 @@ class LinearFc(nn.Module):
         self.dtype = dtype
 
     def forward(self, feat: torch.Tensor) -> torch.Tensor:
-        x = global_avg_pool(feat)
-        dt = self.dtype or x.dtype
-        return (F.linear(x.to(dt), self.linear.weight.to(dt))
-                + self.linear.bias.to(dt))
+        return dense(global_avg_pool(feat), self.linear, self.dtype)
 
 
 def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -42,19 +49,30 @@ def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
 
 
 class MultiTaskWrapper(nn.Module):
-    """Two pretext heads over a shared backbone."""
+    """Two pretext heads over a shared backbone, or (``finetune``) one
+    classifier ``fc`` with ``num_classes`` outputs."""
 
     def __init__(self, encoder: nn.Module, num_classes: int = 128,
-                 fc_type: str = "linear", dtype: Optional[torch.dtype] = None):
+                 fc_type: str = "linear", dtype: Optional[torch.dtype] = None,
+                 finetune: bool = False):
         super().__init__()
+        self.encoder = encoder
+        self.finetune = finetune
+        self.dtype = dtype
+        if finetune:
+            self.fc = nn.Linear(encoder.feature_dim, num_classes)
+            return
         if fc_type != "linear":
             raise NotImplementedError(
                 f"fc_type {fc_type!r} is not ported yet (linear only)")
-        self.encoder = encoder
         self.fc1 = LinearFc(encoder.feature_dim, num_classes, dtype)
         self.fc2 = LinearFc(encoder.feature_dim, num_classes, dtype)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """x: NDHWC clip [B, T, H, W, 3] -> (A-VID, RSP) embeddings."""
+    def forward(self, x: torch.Tensor
+                ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+        """x: NDHWC clip [B, T, H, W, 3] -> (A-VID, RSP) embeddings, or
+        the class logits [B, num_classes] when ``finetune``."""
         feat = self.encoder.features(x.permute(0, 4, 1, 2, 3))
+        if self.finetune:
+            return dense(global_avg_pool(feat), self.fc, self.dtype)
         return l2_normalize(self.fc1(feat)), l2_normalize(self.fc2(feat))

@@ -1,15 +1,20 @@
-"""JAX variables -> the port's ``state_dict`` (port of the S3D-G part of
-rspnet_tpu/models/torch_bridge.py).
+"""JAX variables <-> the port's ``state_dict`` (port of the S3D-G part of
+rspnet_tpu/models/torch_bridge.py, both ways).
 
-The input is a ``{"params", "batch_stats"}`` pair of trees whose leaves are
-already numpy arrays. Either a bare backbone (``S3DG``) or a pretraining
-``MultiTaskWrapper`` (``encoder`` + ``fc1``/``fc2`` linear heads).
+The JAX side is a ``{"params", "batch_stats"}`` pair of trees whose leaves
+are numpy arrays (or CPU tensors, as a checkpoint holds them). The model is
+a bare backbone (``S3DG``), a pretraining ``MultiTaskWrapper``
+(``encoder`` + ``fc1``/``fc2`` linear heads) or a finetuning one
+(``encoder`` + the ``fc`` classifier). ``state_dict_to_variables`` is the
+inverse of ``variables_to_state_dict``: the checkpoints of both packages
+hold its output.
 
 Tensor conventions:
-- flax conv kernel [kt, kh, kw, I, O]  ->  torch Conv3d weight [O, I, kt, kh, kw]
-- flax dense kernel [I, O]             ->  torch Linear weight [O, I]
-- flax BN {scale, bias} + {mean, var}  ->  {weight, bias, running_mean,
-  running_var}
+- flax conv kernel [kt, kh, kw, I, O] <-> torch Conv3d weight
+  [O, I, kt, kh, kw]
+- flax dense kernel [I, O] <-> torch Linear weight [O, I]
+- flax BN {scale, bias} + {mean, var} <-> {weight, bias, running_mean,
+  running_var}; BN's ``num_batches_tracked`` has no JAX counterpart
 """
 from __future__ import annotations
 
@@ -18,7 +23,8 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["variables_to_state_dict", "load_converted"]
+__all__ = ["variables_to_state_dict", "state_dict_to_variables",
+           "load_converted", "load_variables"]
 
 
 def _conv_w(t: np.ndarray) -> np.ndarray:
@@ -27,6 +33,14 @@ def _conv_w(t: np.ndarray) -> np.ndarray:
 
 def _dense_w(t: np.ndarray) -> np.ndarray:
     return np.transpose(t, (1, 0))
+
+
+def _conv_w_inv(t: np.ndarray) -> np.ndarray:
+    return np.transpose(t, (2, 3, 4, 1, 0))
+
+
+# each tensor convention's inverse (the dense one is its own)
+_INVERSE = {None: None, _conv_w: _conv_w_inv, _dense_w: _dense_w}
 
 
 def _bn(prefix_t: str, prefix_f: str):
@@ -85,6 +99,29 @@ KEY_MAPPERS = {"s3dg": lambda: _s3dg_mapping(True),
                "s3d": lambda: _s3dg_mapping(False)}
 
 
+def _dense(t: str, f: str) -> list:
+    return [(f"{t}.weight", ("params", f"{f}/kernel", _dense_w)),
+            (f"{t}.bias", ("params", f"{f}/bias", None))]
+
+
+def _model_mapping(arch: str, wrapper: bool, heads: str) -> list:
+    """(torch key, (collection, JAX path, conversion)) of every tensor of
+    a backbone (``wrapper`` False) or a ``MultiTaskWrapper`` with the
+    pretraining heads (``heads`` "pretrain") or the classifier ("finetune").
+    """
+    if arch not in KEY_MAPPERS:
+        raise NotImplementedError(f"no port mapping for arch {arch!r}")
+    m = KEY_MAPPERS[arch]()
+    if not wrapper:
+        return m
+    m = [(f"encoder.{t}", (coll, f"encoder/{f}", conv))
+         for t, (coll, f, conv) in m]
+    if heads == "pretrain":
+        return m + _dense("fc1.linear", "fc1/linear") + _dense(
+            "fc2.linear", "fc2/linear")
+    return m + _dense("fc", "fc")
+
+
 def _get_path(tree: Mapping, path: str):
     node = tree
     for k in path.split("/"):
@@ -92,25 +129,54 @@ def _get_path(tree: Mapping, path: str):
     return node
 
 
+def _set_path(tree: dict, path: str, value) -> None:
+    *head, last = path.split("/")
+    for k in head:
+        tree = tree.setdefault(k, {})
+    tree[last] = value
+
+
+def _numpy(v) -> np.ndarray:
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    return np.asarray(v)
+
+
 def variables_to_state_dict(variables: Mapping, arch: str = "s3dg"
                             ) -> Dict[str, np.ndarray]:
-    """JAX variables (numpy leaves) -> port state_dict entries (numpy)."""
-    if arch not in KEY_MAPPERS:
-        raise NotImplementedError(f"no port mapping for arch {arch!r}")
+    """JAX variables (numpy or CPU tensor leaves) -> port state_dict
+    entries (numpy)."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     wrapper = "encoder" in params
-    pre_t, pre_f = ("encoder.", "encoder/") if wrapper else ("", "")
+    heads = "finetune" if wrapper and "fc" in params else "pretrain"
     out: Dict[str, np.ndarray] = {}
-    for key_t, (coll, path_f, conv) in KEY_MAPPERS[arch]():
+    for key_t, (coll, path_f, conv) in _model_mapping(arch, wrapper, heads):
         tree = params if coll == "params" else stats
-        v = np.asarray(_get_path(tree, pre_f + path_f))
-        out[pre_t + key_t] = conv(v) if conv is not None else v
-    if wrapper:
-        for head in ("fc1", "fc2"):
-            lin = params[head]["linear"]
-            out[f"{head}.linear.weight"] = _dense_w(np.asarray(lin["kernel"]))
-            out[f"{head}.linear.bias"] = np.asarray(lin["bias"])
+        v = _numpy(_get_path(tree, path_f))
+        out[key_t] = conv(v) if conv is not None else v
+    return out
+
+
+def state_dict_to_variables(state_dict: Mapping, arch: str = "s3dg"
+                            ) -> Dict[str, dict]:
+    """Port state_dict -> JAX ``{"params", "batch_stats"}`` trees of numpy
+    arrays, in the tensors' dtype; every entry but BN's
+    ``num_batches_tracked`` must be mapped."""
+    wrapper = any(k.startswith("encoder.") for k in state_dict)
+    heads = "finetune" if "fc.weight" in state_dict else "pretrain"
+    mapping = _model_mapping(arch, wrapper, heads)
+    mapped = {key_t for key_t, _ in mapping}
+    extra = [k for k in state_dict if k not in mapped
+             and not k.endswith("num_batches_tracked")]
+    if extra:
+        raise KeyError(f"state_dict entries without a JAX name: {extra[:5]}")
+    out: Dict[str, dict] = {"params": {}, "batch_stats": {}}
+    for key_t, (coll, path_f, conv) in mapping:
+        v = _numpy(state_dict[key_t])
+        inv = _INVERSE[conv]
+        _set_path(out[coll], path_f, np.ascontiguousarray(
+            inv(v) if inv is not None else v))
     return out
 
 
@@ -130,3 +196,10 @@ def load_converted(module: torch.nn.Module,
             raise ValueError(f"{k}: {tuple(v.shape)} != {tuple(sd[k].shape)}")
         sd[k] = torch.from_numpy(np.array(v, copy=True)).to(sd[k].dtype)
     module.load_state_dict(sd)
+
+
+def load_variables(module: torch.nn.Module, variables: Mapping,
+                   arch: str = "s3dg") -> None:
+    """Load JAX-layout ``{"params", "batch_stats"}`` trees (as a checkpoint
+    of either package holds them) into ``module``."""
+    load_converted(module, variables_to_state_dict(variables, arch))

@@ -1,5 +1,6 @@
 """Batched video augmentation: host-side parameter sampling (numpy) and the
-device-side geometry + colour pipeline (torch).
+device-side geometry + colour pipeline (torch), and the validation
+preprocess.
 
 Port of rspnet_tpu/ops/augment.py. Parameter sampling is a numpy copy that
 draws the same values from the same ``np.random.Generator`` state. On the
@@ -16,10 +17,11 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from . import color
 from .color_augment import color_augment
 
-__all__ = ["AugmentParams", "sample_train_params", "crop_resize",
-           "augment_batch"]
+__all__ = ["AugmentParams", "sample_train_params", "center_crop_params",
+           "crop_resize", "augment_batch", "eval_preprocess"]
 
 
 # ---------------------------------------------------------------------------
@@ -149,6 +151,31 @@ def sample_train_params(
                          gray=gray, blur=blur)
 
 
+def center_crop_params(batch_size: int,
+                       source_hw: Sequence[Tuple[int, int]],
+                       ratio: float = 1.0) -> AugmentParams:
+    """Deterministic eval params: the largest centred crop of aspect
+    ``ratio``, no colour ops (rspnet_tpu/ops/augment.py:162)."""
+    if len(source_hw) not in (1, batch_size):
+        raise ValueError(
+            f"source_hw must have 1 or batch_size ({batch_size}) entries, "
+            f"got {len(source_hw)}")
+    boxes = np.zeros((batch_size, 4), dtype=np.float32)
+    for b in range(batch_size):
+        h, w = source_hw[b] if len(source_hw) > 1 else source_hw[0]
+        boxes[b] = _center_max_box(h, w, ratio)
+    factors = np.ones((batch_size, 4), dtype=np.float32)
+    factors[:, 3] = 0.0
+    return AugmentParams(
+        boxes=boxes,
+        flip=np.zeros(batch_size, dtype=bool),
+        jitter=factors,
+        order=np.tile(np.arange(4, dtype=np.int32), (batch_size, 1)),
+        gray=np.zeros(batch_size, dtype=bool),
+        blur=np.zeros(batch_size, dtype=bool),
+    )
+
+
 # ---------------------------------------------------------------------------
 # Device-side pipeline
 # ---------------------------------------------------------------------------
@@ -222,3 +249,15 @@ def augment_batch(batch: torch.Tensor, params: AugmentParams, *,
     return color_augment(x, params.order, params.jitter, params.gray,
                          flip_in_kernel, mean=mean, std=std,
                          gray_before_jitter=gray_before_jitter)
+
+
+def eval_preprocess(batch: torch.Tensor, boxes, *, size: Tuple[int, int],
+                    mean: Sequence[float] = (0.485, 0.456, 0.406),
+                    std: Sequence[float] = (0.229, 0.224, 0.225)
+                    ) -> torch.Tensor:
+    """Validation path: uint8 [B, T, H, W, C] -> centre crop ``boxes``,
+    bilinear resize to ``size``, normalize; float32 [B, T, S, S, C]. Plain
+    torch, as the JAX one is plain XLA (rspnet_tpu/ops/augment.py:494)."""
+    x = batch.to(torch.float32) / 255.0
+    x = crop_resize(x, torch.from_numpy(np.asarray(boxes, np.float32)), size)
+    return color.normalize(x, mean, std)
