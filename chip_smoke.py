@@ -50,6 +50,26 @@ Phases, each printing its own lines:
      K1 at the final validation's batch 40) and time them, and hold K3 to
      its plain version on [4, 64, 224, 224, 3] clips (u8 and f32), which
      the generic instance takes, and time it.
+  7. the C3D and ResNet-18 pretrain legs: ``rspnet_tpu_torch.pretrain.main``
+     on config/pretrain/{c3d,resnet18}.jsonnet (published widths, batch 32
+     and 64, 112², 32 -> 16 frames, K 16384), synthetic data, device
+     geometry, 3 bf16 steps (``-d``): K1/K2 all bf16, K3 once per q and k
+     clip in its resident instance;
+  8. retrieval: ``rspnet_tpu_torch.retrieval.main`` on
+     config/retrieval/ucf101_{c3d,resnet18}.jsonnet with ``--mc`` from
+     phase 7's checkpoints, 24 synthetic clips per split (3 batches of 8
+     clips x 10 crops, ``-d``): K1 all bf16, K2 and K3 not launched,
+     finite [24, 512] features, every artifact, R@k monotone;
+  9. CAM visualization: ``rspnet_tpu_torch.visualization.main`` on
+     config/pretrain/s3dg.jsonnet with ``--mc`` from phase 4's checkpoint,
+     batch cut to 8 (``-d``: one batch), twice: K1 all f32, K2 and K3 not
+     launched, the 4 x 8 PNGs by the reference's names, each decoded with
+     zlib to 224 x (224 * 8) RGB, and the second run's bytes equal to the
+     first's. Before them, phases 2 and 3 hold K1/K2 bit-equal to their
+     plain versions in bf16 at C3D's and ResNet-18's pool sites at the
+     pretrain batches (K1 also at the fused key batch and at retrieval's
+     batch 80) and K1 in f32 at the visualization's S3D-G sites (batch
+     8), and time them, and time K3 on the zoo's pretrain clips.
 Then one JSON line with the kernels, the card line again, and the result
 line ``{"ok": true, "device": {...}}`` last. Any failure exits non-zero
 before the result line. Imports nothing of JAX or of rspnet_tpu.
@@ -143,6 +163,29 @@ FT_BATCH, FT_FRAMES, FT_FINAL_BATCH = 4, 64, 40
 FT_POOL_SITES = [(name, (4 * t, h, w, c), k, s, p)
                  for name, (t, h, w, c), k, s, p in POOL_SITES]
 FT_CONFIG = "config/finetune/ucf101_s3dg.jsonnet"
+# the zoo's pool sites ([T, H, W, C] per clip, kernel, stride, padding) at
+# a [B, 16, 112, 112, 3] clip: C3D's four (rspnet_tpu_torch/models/c3d.py;
+# pool1 has no tile instance, the generic K1 takes it) and ResNet-18's one
+# (models/resnet3d.py)
+ZOO_POOL_SITES = {
+    "c3d": [
+        ("c3d.pool1", (16, 112, 112, 64), (1, 2, 2), (1, 2, 2), (0, 0, 0)),
+        ("c3d.pool2", (16, 56, 56, 128), (2, 2, 2), (2, 2, 2), (0, 0, 0)),
+        ("c3d.pool3", (8, 28, 28, 256), (2, 2, 2), (2, 2, 2), (0, 0, 0)),
+        ("c3d.pool4", (4, 14, 14, 512), (2, 2, 2), (2, 2, 2), (0, 0, 0)),
+    ],
+    "resnet18": [
+        ("resnet18.maxpool", (16, 56, 56, 64), (3, 3, 3), (2, 2, 2),
+         (1, 1, 1)),
+    ],
+}
+# the pretrain configs' batches (config/pretrain/{c3d,resnet18}.jsonnet);
+# retrieval folds 10 crops of each of 8 clips into one batch
+# (config/retrieval/ucf101_*.jsonnet); the visualization path's batch, cut
+# from config/pretrain/s3dg.jsonnet's 64
+ZOO_BATCH = {"c3d": 32, "resnet18": 64}
+RET_BATCH, RET_CLIPS, VIS_BATCH = 80, 24, 8
+PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 
 
 class SmokeError(RuntimeError):
@@ -449,19 +492,22 @@ def check_pool_fwd(dev, batch: int, sites=POOL_SITES,
     torch.cuda.empty_cache()
 
 
-def time_pool(dev, batch: int, dtype_name: str, sites=POOL_SITES) -> dict:
-    """K1/K2 at every site of ``sites`` (the main path's by default) in one
-    dtype: timed beside the bound, the plain version, the library and the
-    generic instances, and held bit-equal to the plain version on the same
-    inputs."""
+def time_pool(dev, batch: int, dtype_name: str, sites=POOL_SITES,
+              backward: bool = True) -> dict:
+    """K1 (and K2 unless not ``backward``) at every site of ``sites`` (the
+    main path's by default) in one dtype: timed beside the bound, the plain
+    version, the library and the generic instances, and held bit-equal to
+    the plain version on the same inputs."""
     import torch
     import torch.nn.functional as F
     from rspnet_tpu_torch.ops import max_pool3d as mp
 
-    tot = {k: 0.0 for k in ("fwd", "fwd_again", "fwd_generic", "fwd_plain",
-                            "fwd_lib", "fwd_bound", "bwd", "bwd_again",
-                            "bwd_generic", "bwd_plain", "bwd_lib",
-                            "bwd_bound")}
+    keys = ("fwd", "fwd_again", "fwd_generic", "fwd_plain", "fwd_lib",
+            "fwd_bound")
+    if backward:
+        keys += ("bwd", "bwd_again", "bwd_generic", "bwd_plain", "bwd_lib",
+                 "bwd_bound")
+    tot = {k: 0.0 for k in keys}
     by = {}
     dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -470,73 +516,77 @@ def time_pool(dev, batch: int, dtype_name: str, sites=POOL_SITES) -> dict:
         x = torch.relu(torch.randn((batch, *shape4), generator=gen,
                                    device=dev)).to(dtype)
         out = mp.max_pool3d_fwd(x, k, s, p)
-        g = torch.randn(out.shape, generator=gen, device=dev).to(dtype)
         fref = mp.max_pool3d_fwd_plain(x, k, s, p)
-        fwd_eq = torch.equal(out, fref)
-        fgen_eq = torch.equal(mp.max_pool3d_fwd(x, k, s, p, build=generic),
-                              fref)
+        eq = {"K1": torch.equal(out, fref),
+              "K1 generic": torch.equal(
+                  mp.max_pool3d_fwd(x, k, s, p, build=generic), fref)}
         del fref
-        dref = mp.max_pool3d_bwd_plain(x, g, k, s, p)
-        bwd_eq = torch.equal(mp.max_pool3d_bwd(x, g, k, s, p), dref)
-        gen_eq = torch.equal(mp.max_pool3d_bwd(x, g, k, s, p, build=generic),
-                             dref)
-        del dref
         xn = x.permute(0, 4, 1, 2, 3)          # NCDHW view, channels-last
-        _, idx = F.max_pool3d(xn, k, s, p, return_indices=True)
-        gn = g.permute(0, 4, 1, 2, 3)
         # the compile-time instance, the generic one, the first again
         f = time_ms(lambda: mp.max_pool3d_fwd(x, k, s, p))
         fg = time_ms(lambda: mp.max_pool3d_fwd(x, k, s, p, build=generic))
         f2 = time_ms(lambda: mp.max_pool3d_fwd(x, k, s, p))
         fp = time_ms(lambda: mp.max_pool3d_fwd_plain(x, k, s, p), 2, 1)
         fl = time_ms(lambda: F.max_pool3d(xn, k, s, p))
-        # the compile-time instance, the generic one, the first again
-        b = time_ms(lambda: mp.max_pool3d_bwd(x, g, k, s, p))
-        bg = time_ms(lambda: mp.max_pool3d_bwd(x, g, k, s, p, build=generic))
-        b2 = time_ms(lambda: mp.max_pool3d_bwd(x, g, k, s, p))
-        bp = time_ms(lambda: mp.max_pool3d_bwd_plain(x, g, k, s, p), 2, 1)
-        bl = time_ms(lambda: torch.ops.aten.max_pool3d_with_indices_backward(
-            gn, xn, list(k), list(s), list(p), [1, 1, 1], False, idx))
         window = k[0] * k[1] * k[2]
         esize = x.element_size()
         fb, fby = bound((x.numel() + out.numel()) * esize,
                         out.numel() * window)
-        bb, bby = bound((2 * x.numel() + g.numel()) * esize,
-                        x.numel() * 4 * (k[0] + k[1] + k[2]))
-        by["fwd"], by["bwd"] = fby, bby
-        for key, v in (("fwd", f), ("fwd_again", f2), ("fwd_generic", fg),
-                       ("fwd_plain", fp), ("fwd_lib", fl),
-                       ("fwd_bound", fb), ("bwd", b), ("bwd_again", b2),
-                       ("bwd_generic", bg), ("bwd_plain", bp),
-                       ("bwd_lib", bl), ("bwd_bound", bb)):
+        by["fwd"] = fby
+        times = {"fwd": f, "fwd_again": f2, "fwd_generic": fg,
+                 "fwd_plain": fp, "fwd_lib": fl, "fwd_bound": fb}
+        line = (f"K1 {f:.4f} ms (again {f2:.4f}, generic instance {fg:.4f}, "
+                f"bound {fb:.4f}, plain {fp:.3f}, F.max_pool3d {fl:.4f})")
+        if backward:
+            g = torch.randn(out.shape, generator=gen, device=dev).to(dtype)
+            dref = mp.max_pool3d_bwd_plain(x, g, k, s, p)
+            eq["K2"] = torch.equal(mp.max_pool3d_bwd(x, g, k, s, p), dref)
+            eq["K2 generic"] = torch.equal(
+                mp.max_pool3d_bwd(x, g, k, s, p, build=generic), dref)
+            del dref
+            _, idx = F.max_pool3d(xn, k, s, p, return_indices=True)
+            gn = g.permute(0, 4, 1, 2, 3)
+            b = time_ms(lambda: mp.max_pool3d_bwd(x, g, k, s, p))
+            bg = time_ms(lambda: mp.max_pool3d_bwd(x, g, k, s, p,
+                                                   build=generic))
+            b2 = time_ms(lambda: mp.max_pool3d_bwd(x, g, k, s, p))
+            bp = time_ms(lambda: mp.max_pool3d_bwd_plain(x, g, k, s, p), 2, 1)
+            bl = time_ms(
+                lambda: torch.ops.aten.max_pool3d_with_indices_backward(
+                    gn, xn, list(k), list(s), list(p), [1, 1, 1], False,
+                    idx))
+            bb, bby = bound((2 * x.numel() + g.numel()) * esize,
+                            x.numel() * 4 * (k[0] + k[1] + k[2]))
+            by["bwd"] = bby
+            times.update({"bwd": b, "bwd_again": b2, "bwd_generic": bg,
+                          "bwd_plain": bp, "bwd_lib": bl, "bwd_bound": bb})
+            line += (f" | K2 {b:.4f} ms (again {b2:.4f}, generic instance "
+                     f"{bg:.4f}, bound {bb:.4f}, plain {bp:.3f}, aten bwd "
+                     f"{bl:.4f})")
+            del g, idx
+        for key, v in times.items():
             tot[key] += v
         print(f"time {name:20s} [{batch},{','.join(map(str, shape4))}] "
-              f"{dtype_name} K1 {f:.4f} ms (again {f2:.4f}, generic "
-              f"instance {fg:.4f}, "
-              f"bound {fb:.4f}, plain {fp:.3f}, F.max_pool3d {fl:.4f}) | "
-              f"K2 {b:.4f} ms (again {b2:.4f}, generic instance {bg:.4f}, "
-              f"bound {bb:.4f}, plain {bp:.3f}, aten bwd {bl:.4f}) | "
-              f"bit-equal to plain: K1 {fwd_eq} K1 generic {fgen_eq} K2 "
-              f"{bwd_eq} K2 generic {gen_eq}",
-              flush=True)
-        require(fwd_eq and fgen_eq and bwd_eq and gen_eq,
+              f"{dtype_name} {line} | bit-equal to plain: "
+              f"{' '.join(f'{n} {v}' for n, v in eq.items())}", flush=True)
+        require(all(eq.values()),
                 f"{name} {dtype_name} at batch {batch}: a kernel differs "
-                f"from its plain "
-                f"version (K1 {fwd_eq}, K1 generic {fgen_eq}, K2 {bwd_eq}, "
-                f"K2 generic {gen_eq})")
-        del x, out, g, idx
+                f"from its plain version ({eq})")
+        del x, out
     print(f"time K1 over the {len(sites)} sites at batch {batch}, "
           f"{dtype_name}: "
           f"{tot['fwd']:.4f} ms, "
           f"again {tot['fwd_again']:.4f}, generic instance "
           f"{tot['fwd_generic']:.4f}, F.max_pool3d {tot['fwd_lib']:.4f}, "
           f"bound {tot['fwd_bound']:.4f}", flush=True)
-    print(f"time K2 over the {len(sites)} sites at batch {batch}, "
-          f"{dtype_name}: "
-          f"{tot['bwd']:.4f} ms, "
-          f"again {tot['bwd_again']:.4f}, generic instance "
-          f"{tot['bwd_generic']:.4f}, aten bwd {tot['bwd_lib']:.4f}, bound "
-          f"{tot['bwd_bound']:.4f}", flush=True)
+    if backward:
+        print(f"time K2 over the {len(sites)} sites at batch {batch}, "
+              f"{dtype_name}: "
+              f"{tot['bwd']:.4f} ms, "
+              f"again {tot['bwd_again']:.4f}, generic instance "
+              f"{tot['bwd_generic']:.4f}, aten bwd {tot['bwd_lib']:.4f}, "
+              f"bound {tot['bwd_bound']:.4f}", flush=True)
+    torch.cuda.empty_cache()
     tot["by"] = by
     return tot
 
@@ -629,10 +679,11 @@ def _read_counters():
     return {**mp_l, **ca_l}, dict(mp_d), {**mp_p, **ca_p}
 
 
-def _main_argv(exp: str, *more: str):
+def _main_argv(exp: str, *more: str,
+               config: str = "config/pretrain/s3dg.jsonnet"):
     ext = '{dataset+: {name: "synthetic"}, device_geometry: true}'
-    return ["-c", "config/pretrain/s3dg.jsonnet", "-e", exp, "-x", ext,
-            "-d", "--seed", "0", "--device", "cuda", *more]
+    return ["-c", config, "-e", exp, "-x", ext, "-d", "--seed", "0",
+            "--device", "cuda", *more]
 
 
 def main_path(batch: int, exp: str, profile: bool = False) -> dict:
@@ -843,6 +894,209 @@ def finetune_validate_path(exp: str, ckpt: str) -> dict:
     return {"launches": counts, "wall_s": wall, "peak_gib": peak}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the C3D and ResNet-18 pretrain legs
+# ---------------------------------------------------------------------------
+
+def zoo_pretrain_path(arch: str, exp: str, profile: bool = False) -> dict:
+    """Phase 7: 3 bf16 train steps of ``config/pretrain/{arch}.jsonnet``
+    (published widths and batch, 112², 32 -> 16 frames, K 16384) through
+    the CLI; every K1/K2 launch bf16, K3 on each q and k clip."""
+    import torch
+    from rspnet_tpu_torch import pretrain
+
+    batch = ZOO_BATCH[arch]
+    plan = color_plan_line((batch, 32, 112, 112, 3), False)
+    argv = _main_argv(exp, config=f"config/pretrain/{arch}.jsonnet")
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    t0 = time.perf_counter()
+    if profile:
+        from torch.profiler import ProfilerActivity
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts,
+                                    record_shapes=True) as prof:
+            engine = pretrain.main(argv)
+            torch.cuda.synchronize()
+    else:
+        engine = pretrain.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, by_dtype, plain = _read_counters()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    loss = engine.meters["loss"].avg
+    steps = engine.step_times
+    ckpt = os.path.join(exp, "checkpoint.pth.tar")
+    print(f"{arch} pretrain: batch {batch}, compute dtype {engine.dtype}, "
+          f"{len(steps)} steps, step ms {[round(t, 1) for t in steps]}, "
+          f"wall {wall:.1f} s, peak memory {peak:.2f} GiB, loss {loss:.4f}, "
+          f"launches {counts}, K1/K2 launches by dtype {by_dtype}, plain "
+          f"calls on cuda {plain}, K3 [{batch},32,112,112,3] f32: {plan}, "
+          f"checkpoint {os.path.exists(ckpt)}", flush=True)
+    require(math.isfinite(loss), f"{arch} pretrain loss {loss} not finite")
+    require(len(steps) == 3, f"{arch} pretrain ran {len(steps)} steps")
+    require(engine.dtype == torch.bfloat16 and engine.batch_size == batch,
+            f"{arch} pretrain: {engine.dtype}, batch {engine.batch_size}")
+    require(counts["max_pool3d_fwd"] > 0 and counts["max_pool3d_bwd"] > 0,
+            f"{arch} pretrain did not launch K1 and K2: {counts}")
+    require(counts["color_augment"] == 2 * len(steps),
+            f"{arch} pretrain: K3 launched {counts['color_augment']} times, "
+            f"not once per q and k clip")
+    require(not any(n for key, n in by_dtype.items()
+                    if not key.endswith(".bfloat16")),
+            f"K1/K2 launched off bf16 in {arch} pretrain: {by_dtype}")
+    require(plan.startswith("resident"),
+            f"K3 on the {arch} clips: {plan}, expected the resident instance")
+    require(not any(plain.values()),
+            f"plain versions ran on CUDA tensors: {plain}")
+    require(os.path.exists(ckpt), f"{arch}: no checkpoint.pth.tar")
+    if profile:
+        report_profile(prof, wall)
+    return {"launches": counts, "steps_ms": steps, "peak_gib": peak,
+            "checkpoint": ckpt}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: retrieval
+# ---------------------------------------------------------------------------
+
+def retrieval_path(arch: str, exp: str, pretrained: str) -> dict:
+    """Phase 8: ``rspnet_tpu_torch.retrieval`` on
+    config/retrieval/ucf101_{arch}.jsonnet with ``--mc`` from phase 7:
+    3 batches of 8 clips x 10 crops per split (``-d``), bf16; K1 only."""
+    import numpy as np
+    import torch
+    from rspnet_tpu_torch import retrieval
+
+    ext = ('{dataset+: {name: "synthetic", num_samples: %d, '
+           'val_num_samples: %d}, device_geometry: true}'
+           % (RET_CLIPS, RET_CLIPS))
+    argv = ["-c", f"config/retrieval/ucf101_{arch}.jsonnet", "-e", exp,
+            "-x", ext, "-d", "--seed", "0", "--device", "cuda", "--mc",
+            pretrained]
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    t0 = time.perf_counter()
+    engine, results = retrieval.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, by_dtype, plain = _read_counters()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    run_dir = engine.args.run_dir
+    feats = {split: np.load(run_dir / f"{split}_fold1_feats.npy")
+             for split in ("train", "test")}
+    names = [f"{split}_{n}.npy" for split in ("train", "test")
+             for n in ("fold1_feats", "fold1_labels", "feature", "class")]
+    written = all((run_dir / n).exists() for n in names) and (
+        run_dir / "topk_correct.json").exists()
+    recalls = [results[f"R@{k}"] for k in (1, 5, 10, 20, 50)]
+    batch_ms = engine.batch_times
+    print(f"retrieval {arch}: {len(batch_ms)} batches of "
+          f"{RET_BATCH // engine.n_crop} clips x {engine.n_crop} crops, "
+          f"compute dtype {engine.dtype}, batch ms "
+          f"{[round(t, 1) for t in batch_ms]}, wall {wall:.1f} s, peak "
+          f"memory {peak:.2f} GiB, features "
+          f"{ {k: list(v.shape) for k, v in feats.items()} }, recalls "
+          f"{results}, launches {counts}, K1/K2 launches by dtype "
+          f"{by_dtype}, plain calls on cuda {plain}, artifacts {written}",
+          flush=True)
+    require(engine.dtype == torch.bfloat16, f"retrieval {engine.dtype}")
+    require(engine.n_crop * engine.test_loader.cfg.batch_size == RET_BATCH,
+            f"retrieval batch: {engine.test_loader.cfg.batch_size} clips x "
+            f"{engine.n_crop} crops")
+    require(all(v.shape == (RET_CLIPS, 512) and np.isfinite(v).all()
+                for v in feats.values()), "retrieval features")
+    require(written, "retrieval did not write every artifact")
+    require(recalls == sorted(recalls), f"R@k not monotone: {results}")
+    require(counts["max_pool3d_fwd"] > 0, f"K1 not launched: {counts}")
+    require(counts["max_pool3d_bwd"] == 0 and counts["color_augment"] == 0,
+            f"retrieval launched K2 or K3: {counts}")
+    require(by_dtype["max_pool3d_fwd.float32"] == 0,
+            f"retrieval launched K1 off bf16: {by_dtype}")
+    require(not any(plain.values()),
+            f"plain versions ran on CUDA tensors: {plain}")
+    return {"launches": counts, "batch_ms": batch_ms, "peak_gib": peak}
+
+
+# ---------------------------------------------------------------------------
+# phase 9: CAM visualization
+# ---------------------------------------------------------------------------
+
+def png_size(path) -> tuple:
+    """(height, width) of an 8-bit RGB PNG, decoded with zlib: the
+    signature, every chunk's CRC and the inflated rows' length are
+    checked."""
+    import struct
+    import zlib
+    data = open(path, "rb").read()
+    require(data[:8] == PNG_MAGIC, f"{path}: not a PNG")
+    pos, idat, hdr = 8, b"", None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        require(zlib.crc32(kind + body) & 0xFFFFFFFF == crc,
+                f"{path}: bad CRC in {kind}")
+        if kind == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h, depth, color = hdr[:4]
+    require(depth == 8 and color == 2, f"{path}: not RGB8 ({hdr})")
+    require(len(zlib.decompress(idat)) == h * (1 + 3 * w),
+            f"{path}: pixel rows do not match {w}x{h}")
+    return h, w
+
+
+def visualization_path(exp: str, pretrained: str) -> dict:
+    """Phase 9: ``rspnet_tpu_torch.visualization`` on
+    config/pretrain/s3dg.jsonnet with ``--mc`` from phase 4's checkpoint,
+    batch cut to 8 (``-d``: one batch), twice with one seed; f32, K1
+    only."""
+    import torch
+    from rspnet_tpu_torch import visualization
+
+    ext = ('{dataset+: {name: "synthetic"}, batch_size: %d, '
+           'device_geometry: true}' % VIS_BATCH)
+    runs = []
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    t0 = time.perf_counter()
+    for name in ("a", "b"):
+        engine = visualization.main(
+            ["-c", "config/pretrain/s3dg.jsonnet", "-e",
+             os.path.join(exp, name), "-x", ext, "-d", "--seed", "0",
+             "--device", "cuda", "--mc", pretrained])
+        cam = engine.args.run_dir / "cam"
+        runs.append({p.name: p.read_bytes() for p in sorted(cam.iterdir())})
+        if name == "a":
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts, by_dtype, plain = _read_counters()
+            sizes = {png_size(p) for p in sorted(cam.iterdir())}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {f"sample0_{b}_{n}.png" for b in range(VIS_BATCH)
+            for n in ("qA", "qM", "kA", "kM")}
+    size = engine.size
+    print(f"visualization: batch {VIS_BATCH}, {len(runs[0])} PNGs of "
+          f"{sorted(sizes)} (height, width), first run wall {wall:.1f} s, "
+          f"peak memory {peak:.2f} GiB, launches {counts}, K1/K2 launches "
+          f"by dtype {by_dtype}, plain calls on cuda {plain}, second run "
+          f"byte-identical {runs[0] == runs[1]}", flush=True)
+    require(set(runs[0]) == want, f"CAM names: {sorted(runs[0])}")
+    require(sizes == {(size, 8 * size)}, f"CAM strips of {sizes}")
+    require(runs[0] == runs[1], "two runs with one seed differ")
+    require(counts["max_pool3d_fwd"] > 0, f"K1 not launched: {counts}")
+    require(counts["max_pool3d_bwd"] == 0 and counts["color_augment"] == 0,
+            f"visualization launched K2 or K3: {counts}")
+    require(by_dtype["max_pool3d_fwd.bfloat16"] == 0,
+            f"visualization launched K1 off f32: {by_dtype}")
+    require(not any(plain.values()),
+            f"plain versions ran on CUDA tensors: {plain}")
+    return {"launches": counts, "wall_s": wall, "peak_gib": peak}
+
+
 _KERNEL_GROUPS = [
     # pool_fwd also matches K1's tiled instances, pool_fwd_tile<...>
     ("K1/K2 max pool", ("pool_fwd", "pool_route", "pool_gather")),
@@ -906,8 +1160,9 @@ def report_profile(prof, wall_s: float) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="trace the main path with torch.profiler and print "
-                         "its device time by kernel group")
+                    help="trace the pretrain and finetune paths with "
+                         "torch.profiler and print their device time by "
+                         "kernel group")
     args = ap.parse_args(argv)
 
     import torch
@@ -962,6 +1217,22 @@ def main(argv=None) -> int:
     pool_ft = time_pool(dev, FT_BATCH, "bfloat16", sites=FT_POOL_SITES)
     color_ft = time_color(dev, batch=FT_BATCH, frames=FT_FRAMES, size=224)
     torch.cuda.empty_cache()
+    # the zoo's paths, bf16: K1/K2 at each pretrain q batch, K1 at its
+    # fused key batch and at retrieval's 80 clips; the visualization path's
+    # K1 in f32 at S3D-G's sites, batch 8
+    pool_zoo = {}
+    for arch, sites in ZOO_POOL_SITES.items():
+        b = ZOO_BATCH[arch]
+        check_pool_fwd(dev, 2 * b, sites=sites, dtypes=("bfloat16",))
+        pool_zoo[f"{arch}_pretrain"] = time_pool(dev, b, "bfloat16",
+                                                 sites=sites)
+        pool_zoo[f"retrieval_{arch}"] = time_pool(
+            dev, RET_BATCH, "bfloat16", sites=sites, backward=False)
+    pool_zoo["visualization"] = time_pool(dev, VIS_BATCH, "float32",
+                                          backward=False)
+    # K3 on the zoo's pretrain clips, f32 [B, 32, 112, 112, 3]
+    color_zoo = {arch: time_color(dev, batch=b, frames=32, size=112)
+                 for arch, b in ZOO_BATCH.items()}
 
     with tempfile.TemporaryDirectory() as exp:
         trained = main_path(MAIN_BATCH, os.path.join(exp, "train"),  # 4
@@ -975,7 +1246,35 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         finetune_validate_path(os.path.join(exp, "finetune_validate"),
                                finetuned["checkpoint"])
+        torch.cuda.empty_cache()
+        paths = {}
+        for arch in ZOO_POOL_SITES:                                   # 7
+            leg = zoo_pretrain_path(arch, os.path.join(exp, arch),
+                                    args.profile)
+            paths[f"{arch}_pretrain"] = leg["launches"]
+            torch.cuda.empty_cache()
+            paths[f"retrieval_{arch}"] = retrieval_path(               # 8
+                arch, os.path.join(exp, f"retrieval_{arch}"),
+                leg["checkpoint"])["launches"]
+            torch.cuda.empty_cache()
+        paths["visualization"] = visualization_path(                  # 9
+            os.path.join(exp, "visualization"),
+            trained["checkpoint"])["launches"]
     launches, launches_ft = trained["launches"], finetuned["launches"]
+
+    def path_keys(name, key):
+        """The kernel's launches on phases 7-9's paths and its times at
+        their sites (bf16; the visualization's in f32)."""
+        out = {f"launches_{path}": counts[name]
+               for path, counts in paths.items()}
+        for site, tot in pool_zoo.items():
+            if f"{key}_bound" in tot:
+                out.update({f"ms_{site}": tot[key],
+                            f"plain_ms_{site}": tot[f"{key}_plain"],
+                            f"bound_ms_{site}": tot[f"{key}_bound"],
+                            f"bound_by_{site}": tot["by"][key],
+                            f"library_ms_{site}": tot[f"{key}_lib"]})
+        return out
 
     def pool_row(name, key, replaces, err):
         # the main path's dtype (bf16) first, the f32 times beside it
@@ -996,7 +1295,8 @@ def main(argv=None) -> int:
                 "plain_ms_finetune": pool_ft[f"{key}_plain"],
                 "bound_ms_finetune": pool_ft[f"{key}_bound"],
                 "bound_by_finetune": pool_ft["by"][key],
-                "library_ms_finetune": pool_ft[f"{key}_lib"]}
+                "library_ms_finetune": pool_ft[f"{key}_lib"],
+                **path_keys(name, key)}
 
     kernels = [
         pool_row("max_pool3d_fwd", "fwd", "rspnet_tpu/ops/pallas_pool.py:152",
@@ -1014,7 +1314,10 @@ def main(argv=None) -> int:
          "ms_finetune": color_ft["ms"], "plain_ms_finetune":
          color_ft["plain_ms"], "bound_ms_finetune": color_ft["bound_ms"],
          "bound_by_finetune": color_ft["bound_by"],
-         "library_ms_finetune": None},
+         "library_ms_finetune": None, **path_keys("color_augment", None),
+         **{f"{k}_{arch}_pretrain": v for arch, c in color_zoo.items()
+            for k, v in c.items()},
+         **{f"library_ms_{arch}_pretrain": None for arch in color_zoo}},
     ]
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")

@@ -13,19 +13,9 @@ from __future__ import annotations
 from typing import Optional, Tuple, Union
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from ..models.common import global_avg_pool
-
-
-def dense(x: torch.Tensor, linear: nn.Linear,
-          dtype: Optional[torch.dtype]) -> torch.Tensor:
-    """flax ``nn.Dense(dtype=...)``: input, weight and bias cast to
-    ``dtype`` (the input's if None), the bias added to the rounded
-    product."""
-    dt = dtype or x.dtype
-    return F.linear(x.to(dt), linear.weight.to(dt)) + linear.bias.to(dt)
+from ..models.common import dense, global_avg_pool
 
 
 class LinearFc(nn.Module):

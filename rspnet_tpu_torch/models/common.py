@@ -61,6 +61,40 @@ def conv3d(conv: nn.Conv3d, x: torch.Tensor,
     return y
 
 
+def dense(x: torch.Tensor, linear: nn.Linear,
+          dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """flax ``nn.Dense(dtype=...)``: input, weight and bias cast to
+    ``dtype`` (the input's if None), the bias added to the rounded
+    product."""
+    dt = dtype or x.dtype
+    return F.linear(x.to(dt), linear.weight.to(dt)) + linear.bias.to(dt)
+
+
+def make_conv(in_channels: int, out_channels: int, kernel_size: IntOr3,
+              stride: IntOr3 = 1, padding: IntOr3 = 0,
+              use_bias: bool = False) -> nn.Conv3d:
+    """Conv3d with the JAX package's kernel init (kaiming normal, fan_out,
+    rspnet_tpu/models/common.py:195) and flax's zero bias."""
+    conv = nn.Conv3d(in_channels, out_channels, _triple(kernel_size),
+                     _triple(stride), _triple(padding), bias=use_bias)
+    nn.init.kaiming_normal_(conv.weight, mode="fan_out", nonlinearity="relu")
+    if use_bias:
+        nn.init.zeros_(conv.bias)
+    return conv
+
+
+def conv_bn(conv: nn.Conv3d, bn: "BatchNorm", x: torch.Tensor,
+            dtype: Optional[torch.dtype], activation: bool = True
+            ) -> torch.Tensor:
+    """The JAX package's ``ConvBN`` (rspnet_tpu/models/common.py:176): conv
+    (with its bias, if it has one), BN, and a ReLU unless ``activation`` is
+    False (a residual block's last conv). The modules are passed in, so a
+    backbone can register them under the reference's sibling names
+    (``conv1`` and ``bn1``), which a ``ConvBN`` child cannot give."""
+    y = bn(conv3d(conv, x, dtype))
+    return torch.relu(y) if activation else y
+
+
 class ConvBN(nn.Module):
     """Conv3d (no bias) + BatchNorm + ReLU, named like the reference's
     BasicConv3d (``conv3d``, ``bn``) (rspnet_tpu/models/common.py:176)."""
@@ -70,16 +104,13 @@ class ConvBN(nn.Module):
                  padding: IntOr3 = 0, bn_momentum: float = 0.9,
                  bn_eps: float = 1e-5, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.conv3d = nn.Conv3d(in_channels, out_channels,
-                                _triple(kernel_size), _triple(stride),
-                                _triple(padding), bias=False)
+        self.conv3d = make_conv(in_channels, out_channels, kernel_size,
+                                stride, padding)
         self.bn = BatchNorm(out_channels, bn_momentum, bn_eps, dtype)
         self.dtype = dtype
-        nn.init.kaiming_normal_(self.conv3d.weight, mode="fan_out",
-                                nonlinearity="relu")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.relu(self.bn(conv3d(self.conv3d, x, self.dtype)))
+        return conv_bn(self.conv3d, self.bn, x, self.dtype)
 
 
 def max_pool3d(x: torch.Tensor, kernel, strides, padding=0) -> torch.Tensor:
@@ -89,6 +120,26 @@ def max_pool3d(x: torch.Tensor, kernel, strides, padding=0) -> torch.Tensor:
     ndhwc = x.permute(0, 2, 3, 4, 1).contiguous()
     out = _pool.max_pool3d(ndhwc, kernel, strides, padding)
     return out.permute(0, 4, 1, 2, 3)
+
+
+def avg_pool3d(x: torch.Tensor, kernel, strides, padding=0) -> torch.Tensor:
+    """torch AvgPool3d semantics (count_include_pad=True) on an NCDHW
+    tensor (rspnet_tpu/models/common.py:531): the window sum over zero
+    padding, in the tensor's dtype, divided by the window size. Plain
+    torch, which takes bf16 on the CPU too; ResNet's type-A shortcut (k 1)
+    is an exact strided subsample."""
+    k, s, p = _triple(kernel), _triple(strides), _triple(padding)
+    x = F.pad(x, (p[2], p[2], p[1], p[1], p[0], p[0]))
+    n = [(d - kk) // ss + 1 for d, kk, ss in zip(x.shape[2:], k, s)]
+    acc = None
+    for dt in range(k[0]):
+        for dh in range(k[1]):
+            for dw in range(k[2]):
+                v = x[:, :, dt:dt + (n[0] - 1) * s[0] + 1:s[0],
+                      dh:dh + (n[1] - 1) * s[1] + 1:s[1],
+                      dw:dw + (n[2] - 1) * s[2] + 1:s[2]]
+                acc = v if acc is None else acc + v
+    return acc / (k[0] * k[1] * k[2])
 
 
 class MaxPool3d(nn.Module):

@@ -1,9 +1,10 @@
-"""JAX variables <-> the port's ``state_dict`` (port of the S3D-G part of
-rspnet_tpu/models/torch_bridge.py, both ways).
+"""JAX variables <-> the port's ``state_dict`` (port of the S3D-G, C3D and
+ResNet-3D parts of rspnet_tpu/models/torch_bridge.py, both ways).
 
 The JAX side is a ``{"params", "batch_stats"}`` pair of trees whose leaves
 are numpy arrays (or CPU tensors, as a checkpoint holds them). The model is
-a bare backbone (``S3DG``), a pretraining ``MultiTaskWrapper``
+a bare backbone (``S3DG``, ``C3D``, ``ResNet3D``), a pretraining
+``MultiTaskWrapper``
 (``encoder`` + ``fc1``/``fc2`` linear heads) or a finetuning one
 (``encoder`` + the ``fc`` classifier). ``state_dict_to_variables`` is the
 inverse of ``variables_to_state_dict``: the checkpoints of both packages
@@ -15,13 +16,21 @@ Tensor conventions:
 - flax dense kernel [I, O] <-> torch Linear weight [O, I]
 - flax BN {scale, bias} + {mean, var} <-> {weight, bias, running_mean,
   running_var}; BN's ``num_batches_tracked`` has no JAX counterpart
+
+Some tensors of a backbone exist only in some builds of it: a ResNet
+block's ``downsample`` (shortcut B, not A) and a bare backbone's own
+classifier (``fc``, ``linear``). Their entries are skipped where the source
+lacks them; ``load_converted`` still requires every tensor of the module.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Dict, Mapping
 
 import numpy as np
 import torch
+
+from .resnet3d import DEPTHS, Bottleneck
 
 __all__ = ["variables_to_state_dict", "state_dict_to_variables",
            "load_converted", "load_variables"]
@@ -52,10 +61,15 @@ def _bn(prefix_t: str, prefix_f: str):
     ]
 
 
+def _conv_bn(conv_t: str, bn_t: str, prefix_f: str, bias: bool = False):
+    m = [(f"{conv_t}.weight", ("params", f"{prefix_f}/conv/kernel", _conv_w))]
+    if bias:
+        m.append((f"{conv_t}.bias", ("params", f"{prefix_f}/conv/bias", None)))
+    return m + _bn(bn_t, f"{prefix_f}/bn")
+
+
 def _convbn(prefix_t: str, prefix_f: str):
-    return ([(f"{prefix_t}.conv3d.weight",
-              ("params", f"{prefix_f}/conv/kernel", _conv_w))]
-            + _bn(f"{prefix_t}.bn", f"{prefix_f}/bn"))
+    return _conv_bn(f"{prefix_t}.conv3d", f"{prefix_t}.bn", prefix_f)
 
 
 def _sepconv_mapping(t: str, f: str, gate: bool) -> list:
@@ -95,31 +109,67 @@ def _s3dg_mapping(gate: bool = True) -> list:
     return m
 
 
-KEY_MAPPERS = {"s3dg": lambda: _s3dg_mapping(True),
-               "s3d": lambda: _s3dg_mapping(False)}
-
-
 def _dense(t: str, f: str) -> list:
     return [(f"{t}.weight", ("params", f"{f}/kernel", _dense_w)),
             (f"{t}.bias", ("params", f"{f}/bias", None))]
 
 
-def _model_mapping(arch: str, wrapper: bool, heads: str) -> list:
-    """(torch key, (collection, JAX path, conversion)) of every tensor of
-    a backbone (``wrapper`` False) or a ``MultiTaskWrapper`` with the
-    pretraining heads (``heads`` "pretrain") or the classifier ("finetune").
-    """
+def _c3d_mapping() -> list:
+    m = []
+    for name in ["conv1", "conv2", "conv3a", "conv3b", "conv4a", "conv4b",
+                 "conv5a", "conv5b"]:
+        m += _conv_bn(name, "bn" + name[4:], name, bias=True)
+    return m + _dense("linear", "linear")
+
+
+def _resnet_mapping(layers, bottleneck: bool) -> list:
+    m = _conv_bn("conv1", "bn1", "stem")
+    for s, blocks in enumerate(layers):
+        for i in range(blocks):
+            t, f = f"layer{s + 1}.{i}", f"layer{s + 1}_{i}"
+            for c in range(1, (3 if bottleneck else 2) + 1):
+                m += _conv_bn(f"{t}.conv{c}", f"{t}.bn{c}", f"{f}/conv{c}")
+            # a block whose shape changes has a projection under shortcut B
+            if i == 0 and (s > 0 or bottleneck):
+                m += _conv_bn(f"{t}.downsample.0", f"{t}.downsample.1",
+                              f"{f}/downsample")
+    return m + _dense("fc", "fc")
+
+
+KEY_MAPPERS = {
+    "s3dg": lambda: _s3dg_mapping(True),
+    "s3d": lambda: _s3dg_mapping(False),
+    "c3d": _c3d_mapping,
+    **{arch: partial(_resnet_mapping, layers, block is Bottleneck)
+       for arch, (block, layers) in DEPTHS.items()},
+}
+
+
+def _optional(key_t: str) -> bool:
+    """A backbone tensor that only some builds have (module docstring)."""
+    return ".downsample." in key_t or key_t.split(".")[0] in ("fc", "linear")
+
+
+def _model_mapping(arch: str, wrapper: bool, heads: str):
+    """-> (entries, optional keys): (torch key, (collection, JAX path,
+    conversion)) of every tensor of a backbone (``wrapper`` False) or a
+    ``MultiTaskWrapper`` with the pretraining heads (``heads`` "pretrain")
+    or the classifier ("finetune"), and the torch keys of the backbone's
+    optional tensors."""
     if arch not in KEY_MAPPERS:
-        raise NotImplementedError(f"no port mapping for arch {arch!r}")
+        raise NotImplementedError(
+            f"no port mapping for arch {arch!r} (see ROADMAP.md)")
     m = KEY_MAPPERS[arch]()
+    optional = {t for t, _ in m if _optional(t)}
     if not wrapper:
-        return m
+        return m, optional
     m = [(f"encoder.{t}", (coll, f"encoder/{f}", conv))
          for t, (coll, f, conv) in m]
+    optional = {f"encoder.{t}" for t in optional}
     if heads == "pretrain":
         return m + _dense("fc1.linear", "fc1/linear") + _dense(
-            "fc2.linear", "fc2/linear")
-    return m + _dense("fc", "fc")
+            "fc2.linear", "fc2/linear"), optional
+    return m + _dense("fc", "fc"), optional
 
 
 def _get_path(tree: Mapping, path: str):
@@ -151,9 +201,15 @@ def variables_to_state_dict(variables: Mapping, arch: str = "s3dg"
     wrapper = "encoder" in params
     heads = "finetune" if wrapper and "fc" in params else "pretrain"
     out: Dict[str, np.ndarray] = {}
-    for key_t, (coll, path_f, conv) in _model_mapping(arch, wrapper, heads):
+    mapping, optional = _model_mapping(arch, wrapper, heads)
+    for key_t, (coll, path_f, conv) in mapping:
         tree = params if coll == "params" else stats
-        v = _numpy(_get_path(tree, path_f))
+        try:
+            v = _numpy(_get_path(tree, path_f))
+        except KeyError:
+            if key_t in optional:
+                continue
+            raise
         out[key_t] = conv(v) if conv is not None else v
     return out
 
@@ -165,7 +221,7 @@ def state_dict_to_variables(state_dict: Mapping, arch: str = "s3dg"
     ``num_batches_tracked`` must be mapped."""
     wrapper = any(k.startswith("encoder.") for k in state_dict)
     heads = "finetune" if "fc.weight" in state_dict else "pretrain"
-    mapping = _model_mapping(arch, wrapper, heads)
+    mapping, optional = _model_mapping(arch, wrapper, heads)
     mapped = {key_t for key_t, _ in mapping}
     extra = [k for k in state_dict if k not in mapped
              and not k.endswith("num_batches_tracked")]
@@ -173,6 +229,8 @@ def state_dict_to_variables(state_dict: Mapping, arch: str = "s3dg"
         raise KeyError(f"state_dict entries without a JAX name: {extra[:5]}")
     out: Dict[str, dict] = {"params": {}, "batch_stats": {}}
     for key_t, (coll, path_f, conv) in mapping:
+        if key_t in optional and key_t not in state_dict:
+            continue
         v = _numpy(state_dict[key_t])
         inv = _INVERSE[conv]
         _set_path(out[coll], path_f, np.ascontiguousarray(

@@ -120,12 +120,3 @@ def s3dg(dtype: Optional[torch.dtype] = None) -> S3DG:
 def s3d(dtype: Optional[torch.dtype] = None) -> S3DG:
     return S3DG(gate=False, dtype=dtype)
 
-
-MODELS = {"s3dg": s3dg, "s3d": s3d}
-
-
-def get_model_class(arch: str):
-    if arch not in MODELS:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet; ported: {sorted(MODELS)}")
-    return MODELS[arch]

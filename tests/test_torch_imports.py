@@ -1,7 +1,13 @@
 """The port stands alone: no file of rspnet_tpu_torch/ or chip_smoke.py
 imports JAX, flax, optax or the rspnet_tpu package (it keeps its own copy of
 what it needs). Checked on the AST, so a lazy import inside a function is
-caught too."""
+caught too.
+
+OpenCV is not on the card machine either: no port file imports ``cv2``
+but inside the two functions that decode or resize frames on the host
+(``data/video_reader.py``; ``data/pipeline.py:_load_one``, host geometry
+only), never at module level. The CAM visualization has its own image
+helper (``utils/image.py``)."""
 import ast
 import pathlib
 
@@ -29,6 +35,32 @@ def _imported_roots(path: pathlib.Path):
             yield str(node.args[0].value).split(".")[0]
 
 
+# (file, function) pairs that may import cv2 lazily
+CV2_ALLOWED = {("rspnet_tpu_torch/data/video_reader.py", "_maybe_resize"),
+               ("rspnet_tpu_torch/data/video_reader.py", "__init__"),
+               ("rspnet_tpu_torch/data/pipeline.py", "_load_one")}
+
+
+def _cv2_imports(path: pathlib.Path):
+    """(enclosing function or None, line) of every cv2 import."""
+    found = []
+
+    def visit(node, func):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            func = node.name
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        if any(n.split(".")[0] == "cv2" for n in names):
+            found.append((func, node.lineno))
+        for child in ast.iter_child_nodes(node):
+            visit(child, func)
+    visit(ast.parse(path.read_text(), filename=str(path)), None)
+    return found
+
+
 def test_port_has_files():
     assert len(FILES) > 20
 
@@ -44,3 +76,17 @@ def test_checker_catches_a_forbidden_import(tmp_path):
     probe.write_text("def f():\n    from rspnet_tpu.ops import color\n"
                      "    import jax.numpy as jnp\n")
     assert set(_imported_roots(probe)) == {"rspnet_tpu", "jax"}
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_cv2_outside_the_host_decode_path(path):
+    rel = str(path.relative_to(ROOT))
+    bad = [(func, line) for func, line in _cv2_imports(path)
+           if (rel, func) not in CV2_ALLOWED]
+    assert not bad, f"{rel} imports cv2 at {bad}"
+
+
+def test_cv2_checker_catches_a_module_level_import(tmp_path):
+    probe = tmp_path / "probe.py"
+    probe.write_text("import cv2\ndef f():\n    from cv2 import resize\n")
+    assert _cv2_imports(probe) == [(None, 1), ("f", 3)]

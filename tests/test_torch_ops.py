@@ -10,7 +10,8 @@ CUDA kernels are held against those on the card by chip_smoke.py).
   routings ``max_pool3d_pallas(..., interpret=True)`` (stride 1) and
   ``_make_max_pool3d_fm()`` (strided). At S3D-G's geometries the plain
   backward is pinned to the rw-sep VJP (the JAX S3D-G's default pool) on
-  unique, tie-heavy and -inf inputs: in f32 at rtol / atol 1e-5, in bf16
+  unique, tie-heavy and -inf inputs (also at C3D's pool1, whose other
+  geometry and ResNet's are S3D-G's): in f32 at rtol / atol 1e-5, in bf16
   bit-equal at the strided geometries and within 2.5 bf16 ulps of A per
   cell at stride 1 (A: the f32 backward of |g|; ``ops/max_pool3d.py``
   derives the bound). Windows that hold a NaN are the one stated
@@ -157,7 +158,10 @@ def test_pool_gradient_nan_and_neginf_like_pallas(ishape, k, p):
 
 
 # S3D-G's four pool geometries plus the stride-1 (1,3,3) window
-S3DG_GEOMETRIES = {
+# S3D-G's geometries; C3D pools at 1x2x2_s122 (pool1) and 2x2x2_s2, the
+# 3-D ResNets at 3x3x3_s2
+POOL_GEOMETRIES = {
+    "1x2x2_s122": ((1, 2, 2), (1, 2, 2), (0, 0, 0)),
     "3x3x3_s1": ((3, 3, 3), (1, 1, 1), (1, 1, 1)),
     "1x3x3_s122": ((1, 3, 3), (1, 2, 2), (0, 1, 1)),
     "3x3x3_s2": ((3, 3, 3), (2, 2, 2), (1, 1, 1)),
@@ -188,11 +192,11 @@ def _rw_sep_grad(x, g, k, s, p):
 
 
 @pytest.mark.parametrize("kind", ["unique", "ties", "neginf"])
-@pytest.mark.parametrize("geom", sorted(S3DG_GEOMETRIES))
+@pytest.mark.parametrize("geom", sorted(POOL_GEOMETRIES))
 def test_pool_gradient_f32_like_default_jax_pool(geom, kind):
     """F7: apart from NaN windows, the first-match backward equals the VJP
     of the JAX S3D-G's default pool in f32."""
-    k, s, p = S3DG_GEOMETRIES[geom]
+    k, s, p = POOL_GEOMETRIES[geom]
     x = _pool_input(kind)
     g = np.random.RandomState(12).randn(
         *tmp.max_pool3d_fwd_plain(torch.from_numpy(x), k, s, p).shape
@@ -209,12 +213,12 @@ def _ulp_bf16(v: np.ndarray) -> np.ndarray:
 
 
 @pytest.mark.parametrize("kind", ["unique", "ties", "neginf"])
-@pytest.mark.parametrize("geom", sorted(S3DG_GEOMETRIES))
+@pytest.mark.parametrize("geom", sorted(POOL_GEOMETRIES))
 def test_pool_gradient_bf16_like_default_jax_pool(geom, kind):
     """F8: in bf16 the first-match backward equals the default pool's VJP
     bit for bit at the strided geometries, and at stride 1 lies within
     2.5 ulp_bf16(A) of it, A the f32 backward of |g|."""
-    k, s, p = S3DG_GEOMETRIES[geom]
+    k, s, p = POOL_GEOMETRIES[geom]
     xt = torch.from_numpy(_pool_input(kind)).to(torch.bfloat16)
     gt = torch.from_numpy(np.random.RandomState(12).randn(
         *tmp.max_pool3d_fwd_plain(xt, k, s, p).shape)).to(torch.bfloat16)

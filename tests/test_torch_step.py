@@ -24,7 +24,7 @@ from rspnet_tpu_torch.config import ConfigTree
 from rspnet_tpu_torch.framework.lr_schedule import build_optimizer
 from rspnet_tpu_torch.models.convert import (load_converted,
                                              variables_to_state_dict)
-from rspnet_tpu_torch.models.s3dg import S3DG
+from rspnet_tpu_torch.models import get_model_class as port_model_class
 from rspnet_tpu_torch.moco import MoCoConfig, MoCoState, MultiTaskWrapper
 from rspnet_tpu_torch.moco.step import train_step
 from tests.test_step_parity import enable_x64
@@ -38,17 +38,17 @@ def _np_tree(tree):
     return jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), tree)
 
 
-def _port_model(params, stats):
-    net = MultiTaskWrapper(S3DG(), num_classes=DIM).double()
-    net = net.to(memory_format=torch.channels_last_3d)
+def _port_model(params, stats, arch="s3dg"):
+    net = MultiTaskWrapper(port_model_class(arch)(), num_classes=DIM)
+    net = net.double().to(memory_format=torch.channels_last_3d)
     load_converted(net, variables_to_state_dict(
-        {"params": _np_tree(params), "batch_stats": _np_tree(stats)}))
+        {"params": _np_tree(params), "batch_stats": _np_tree(stats)}, arch))
     return net
 
 
-def _assert_model(net, params, stats, what):
+def _assert_model(net, params, stats, what, arch="s3dg"):
     want = variables_to_state_dict({"params": _np_tree(params),
-                                    "batch_stats": _np_tree(stats)})
+                                    "batch_stats": _np_tree(stats)}, arch)
     got = net.state_dict()
     for name, ref in want.items():
         np.testing.assert_allclose(got[name].numpy(), ref, atol=ATOL,
@@ -60,8 +60,10 @@ def test_train_step_matches_jax():
         _run()
 
 
-def _run():
-    jmodel = JaxWrapper(encoder_factory=get_model_class("s3dg"),
+def _run(arch="s3dg"):
+    """One step of ``arch`` in both packages, compared (also run on C3D by
+    tests/test_torch_zoo_step.py)."""
+    jmodel = JaxWrapper(encoder_factory=get_model_class(arch),
                         num_classes=DIM, fc_type="linear", axis_name=None)
     rng = np.random.RandomState(0)
     variables = jax.jit(lambda k, v: jmodel.init(k, v, train=False))(
@@ -99,8 +101,8 @@ def _run():
     speed_index = int(jax.random.randint(key_speed, (), 0, 1))
 
     # the port, from the same state
-    model_q = _port_model(params_q, stats)
-    model_k = _port_model(params_k, stats)
+    model_q = _port_model(params_q, stats, arch)
+    model_k = _port_model(params_k, stats, arch)
     for p in model_k.parameters():
         p.requires_grad_(False)
     opt = build_optimizer(ConfigTree.from_dict(
@@ -119,9 +121,9 @@ def _run():
         np.testing.assert_allclose(float(metrics[name]), float(ref),
                                    atol=ATOL, rtol=RTOL, err_msg=name)
     _assert_model(pstate.model_q, new_state.params_q, new_state.batch_stats_q,
-                  "encoder q")
+                  "encoder q", arch)
     _assert_model(pstate.model_k, new_state.params_k, new_state.batch_stats_k,
-                  "encoder k")
+                  "encoder k", arch)
     np.testing.assert_allclose(pstate.queue.numpy(),
                                np.asarray(new_state.queue), atol=ATOL,
                                rtol=RTOL)
