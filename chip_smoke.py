@@ -70,6 +70,24 @@ Phases, each printing its own lines:
      pretrain batches (K1 also at the fused key batch and at retrieval's
      batch 80) and K1 in f32 at the visualization's S3D-G sites (batch
      8), and time them, and time K3 on the zoo's pretrain clips.
+ 10. the R(2+1)D and TSM legs, bf16 at the published widths: 3 steps each
+     of ``rspnet_tpu_torch.pretrain.main`` on config/pretrain/tsm-r18.jsonnet
+     (TSM on resnet18, batch 64, 112², 16 -> 8 frames: K1 twice and K2
+     once a step, all bf16, at the stem pool; K3 once per q and k clip)
+     and on config/pretrain/r2plus1d.jsonnet (r2plus1d-vcop, batch 32,
+     112², 32 -> 16 frames: K3 only); then ``rspnet_tpu_torch.finetune``
+     on config/finetune/ucf101_r2plus1d.jsonnet with ``--mc`` from the
+     R(2+1)D leg (batch 8 of 16 frames, 24 train clips: 3 steps, one
+     validation batch, a final 10-crop validation of 8 clips, 80 clip
+     forwards in one batch: K3 only), as published (multitask) and with
+     ``model_type: '1stream'``. Before them, phases 2 and 3 hold K1/K2
+     bit-equal to their plain versions in bf16 at TSM's stem pool site,
+     [B, 8, 56, 56, 64] (1,3,3)/(1,2,2)/(0,1,1), at batch 64 and at the
+     key pass's 128, and time them; and time K3 on the two legs' f32
+     clips, [64, 16, 112, 112, 3] and [32, 32, 112, 112, 3], naming the
+     instance that takes each. With ``--profile`` the two pretrain legs
+     are traced, and R(2+1)D's odd-width convolutions (83 and 921 middle
+     channels) are run alone under the profiler, naming their kernels.
 Then one JSON line with the kernels, the card line again, and the result
 line ``{"ok": true, "device": {...}}`` last. Any failure exits non-zero
 before the result line. Imports nothing of JAX or of rspnet_tpu.
@@ -77,6 +95,7 @@ before the result line. Imports nothing of JAX or of rspnet_tpu.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -185,6 +204,19 @@ ZOO_POOL_SITES = {
 # from config/pretrain/s3dg.jsonnet's 64
 ZOO_BATCH = {"c3d": 32, "resnet18": 64}
 RET_BATCH, RET_CLIPS, VIS_BATCH = 80, 24, 8
+# phase 10: TSM's stem pool (rspnet_tpu_torch/models/tsm.py) on a
+# [B, 8, 112, 112, 3] q clip; the legs' configs, batches and clip frames
+# before the speed gather; the R(2+1)D finetune (batch 8 = 16 x its
+# bs_factor 0.5; one validation batch; 8 clips x 10 crops in the final
+# validation)
+TSM_POOL_SITES = [("tsm.stem_pool", (8, 56, 56, 64), (1, 3, 3), (1, 2, 2),
+                   (0, 1, 1))]
+P10_PRETRAIN = {  # leg -> (config, batch, frames, (K1, K2) calls a step)
+    "tsm": ("config/pretrain/tsm-r18.jsonnet", 64, 16, (2, 1)),
+    "r2plus1d": ("config/pretrain/r2plus1d.jsonnet", 32, 32, (0, 0)),
+}
+R21D_FT_CONFIG = "config/finetune/ucf101_r2plus1d.jsonnet"
+R21D_FT_BATCH, R21D_FT_FINAL = 8, 80
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 
 
@@ -792,12 +824,14 @@ def validate_path(exp: str, ckpt: str) -> dict:
 # phase 6: the finetune path
 # ---------------------------------------------------------------------------
 
-def _finetune_argv(exp: str, *more: str):
+def _finetune_argv(exp: str, *more: str, config: str = FT_CONFIG,
+                   ext: str = None):
     # 12 train clips (3 steps of 4), 4 validation clips (one batch; 40
     # clips in the final 10-crop validation)
-    ext = ('{dataset+: {name: "synthetic", num_samples: 12, '
-           'val_num_samples: 4}, device_geometry: true, bn_recalibrate: 1}')
-    return ["-c", FT_CONFIG, "-e", exp, "-x", ext, "-d", "--seed", "0",
+    ext = ext or ('{dataset+: {name: "synthetic", num_samples: 12, '
+                  'val_num_samples: 4}, device_geometry: true, '
+                  'bn_recalibrate: 1}')
+    return ["-c", config, "-e", exp, "-x", ext, "-d", "--seed", "0",
             "--device", "cuda", *more]
 
 
@@ -898,16 +932,21 @@ def finetune_validate_path(exp: str, ckpt: str) -> dict:
 # phase 7: the C3D and ResNet-18 pretrain legs
 # ---------------------------------------------------------------------------
 
-def zoo_pretrain_path(arch: str, exp: str, profile: bool = False) -> dict:
-    """Phase 7: 3 bf16 train steps of ``config/pretrain/{arch}.jsonnet``
-    (published widths and batch, 112², 32 -> 16 frames, K 16384) through
-    the CLI; every K1/K2 launch bf16, K3 on each q and k clip."""
+def zoo_pretrain_path(arch: str, exp: str, profile: bool = False,
+                      config: str = None, batch: int = None,
+                      frames: int = 32, pool_calls=None) -> dict:
+    """Phase 7 (and 10): 3 bf16 train steps of
+    ``config/pretrain/{arch}.jsonnet`` (published widths and batch, 112²,
+    ``frames`` -> half as many, K 16384) through the CLI; every K1/K2
+    launch bf16, K3 on each q and k clip. ``pool_calls`` (K1, K2) a step,
+    when given, are the exact launches; else both must be launched."""
     import torch
     from rspnet_tpu_torch import pretrain
 
-    batch = ZOO_BATCH[arch]
-    plan = color_plan_line((batch, 32, 112, 112, 3), False)
-    argv = _main_argv(exp, config=f"config/pretrain/{arch}.jsonnet")
+    batch = batch or ZOO_BATCH[arch]
+    config = config or f"config/pretrain/{arch}.jsonnet"
+    plan = color_plan_line((batch, frames, 112, 112, 3), False)
+    argv = _main_argv(exp, config=config)
     torch.cuda.reset_peak_memory_stats()
     _reset_counters()
     t0 = time.perf_counter()
@@ -931,14 +970,22 @@ def zoo_pretrain_path(arch: str, exp: str, profile: bool = False) -> dict:
           f"{len(steps)} steps, step ms {[round(t, 1) for t in steps]}, "
           f"wall {wall:.1f} s, peak memory {peak:.2f} GiB, loss {loss:.4f}, "
           f"launches {counts}, K1/K2 launches by dtype {by_dtype}, plain "
-          f"calls on cuda {plain}, K3 [{batch},32,112,112,3] f32: {plan}, "
-          f"checkpoint {os.path.exists(ckpt)}", flush=True)
+          f"calls on cuda {plain}, K3 [{batch},{frames},112,112,3] f32: "
+          f"{plan}, checkpoint {os.path.exists(ckpt)}", flush=True)
     require(math.isfinite(loss), f"{arch} pretrain loss {loss} not finite")
     require(len(steps) == 3, f"{arch} pretrain ran {len(steps)} steps")
     require(engine.dtype == torch.bfloat16 and engine.batch_size == batch,
             f"{arch} pretrain: {engine.dtype}, batch {engine.batch_size}")
-    require(counts["max_pool3d_fwd"] > 0 and counts["max_pool3d_bwd"] > 0,
-            f"{arch} pretrain did not launch K1 and K2: {counts}")
+    if pool_calls is None:
+        require(counts["max_pool3d_fwd"] > 0
+                and counts["max_pool3d_bwd"] > 0,
+                f"{arch} pretrain did not launch K1 and K2: {counts}")
+    else:
+        want = (pool_calls[0] * len(steps), pool_calls[1] * len(steps))
+        require((counts["max_pool3d_fwd"], counts["max_pool3d_bwd"])
+                == want, f"{arch} pretrain: K1/K2 launched "
+                f"{counts['max_pool3d_fwd']}/{counts['max_pool3d_bwd']} "
+                f"times, not {want[0]}/{want[1]}")
     require(counts["color_augment"] == 2 * len(steps),
             f"{arch} pretrain: K3 launched {counts['color_augment']} times, "
             f"not once per q and k clip")
@@ -954,6 +1001,115 @@ def zoo_pretrain_path(arch: str, exp: str, profile: bool = False) -> dict:
         report_profile(prof, wall)
     return {"launches": counts, "steps_ms": steps, "peak_gib": peak,
             "checkpoint": ckpt}
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the R(2+1)D finetune (the pretrain legs are zoo_pretrain_path's)
+# ---------------------------------------------------------------------------
+
+def r2plus1d_finetune_path(exp: str, pretrained: str,
+                           model_type: str) -> dict:
+    """Phase 10: config/finetune/ucf101_r2plus1d.jsonnet with ``--mc`` from
+    the R(2+1)D pretrain leg, as ``model_type``: 3 bf16 train steps of 8
+    clips, one validation batch, the final 10-crop validation of 8 clips
+    (80 clip forwards in one batch). K3 on each train batch; no pool."""
+    import torch
+    from rspnet_tpu_torch import finetune
+
+    ext = ('{dataset+: {name: "synthetic", num_samples: %d, '
+           'val_num_samples: %d}, device_geometry: true, model_type: "%s"}'
+           % (3 * R21D_FT_BATCH, R21D_FT_BATCH, model_type))
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    t0 = time.perf_counter()
+    engine, final = finetune.main(_finetune_argv(
+        exp, "--mc", pretrained, config=R21D_FT_CONFIG, ext=ext))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, by_dtype, plain = _read_counters()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = engine.step_times
+    train = {k: engine.train_meters[k].avg for k in ("loss", "acc1", "acc5")}
+    val = engine.validation
+    print(f"r2plus1d finetune {model_type}: batch {R21D_FT_BATCH}, 16 "
+          f"frames, compute dtype {engine.dtype}, model "
+          f"{type(engine.model).__name__}, {len(steps)} steps, step ms "
+          f"{[round(t, 1) for t in steps]}, wall {wall:.1f} s, peak memory "
+          f"{peak:.2f} GiB, train loss {train['loss']:.4f} acc1 "
+          f"{train['acc1']:.2f}, validation "
+          f"{ {k: round(v, 4) for k, v in val.items()} }, final "
+          f"{R21D_FT_FINAL // R21D_FT_BATCH}-crop validation "
+          f"{ {k: round(v, 4) for k, v in final.items()} }, launches "
+          f"{counts}, plain calls on cuda {plain}", flush=True)
+    require(engine.model_type == model_type,
+            f"finetune built {engine.model_type}, not {model_type}")
+    require(all(math.isfinite(v) for v in train.values()),
+            f"r2plus1d finetune train metrics not finite: {train}")
+    require(len(steps) == 3, f"r2plus1d finetune ran {len(steps)} steps")
+    require(engine.dtype == torch.bfloat16,
+            f"r2plus1d finetune computes in {engine.dtype}, not bf16")
+    require(val["count"] == R21D_FT_BATCH and math.isfinite(val["loss"]),
+            f"r2plus1d finetune validation: {val}")
+    require(final["count"] == R21D_FT_BATCH and math.isfinite(final["loss"]),
+            f"r2plus1d final validation: {final}")
+    require(counts["color_augment"] == len(steps),
+            f"K3 launched {counts['color_augment']} times, not once a step")
+    require(counts["max_pool3d_fwd"] == 0 and counts["max_pool3d_bwd"] == 0,
+            f"R(2+1)D has no max pool, yet K1/K2 launched: {counts}")
+    require(not any(plain.values()),
+            f"plain versions ran on CUDA tensors: {plain}")
+    return {"launches": counts, "steps_ms": steps, "peak_gib": peak}
+
+
+def profile_odd_convs(dev) -> None:
+    """R(2+1)D's factored convolutions whose widths are no multiple of 8
+    (the stem's 83 middle channels, conv5's 921) and conv2's temporal conv
+    (144 middle channels) at the R(2+1)D pretrain leg's q-batch shapes,
+    bf16 channels-last, each alone under the profiler, forward and then
+    backward (no input gradient for the stem's first conv, as in the
+    model): the kernels cuDNN picks for them."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    shapes = [  # (name, input [B, C, T, H, W], out, kernel, stride, pad)
+        ("stem spatial 3->83 (1,7,7)/2", (32, 3, 16, 112, 112), 83,
+         (1, 7, 7), (1, 2, 2), (0, 3, 3)),
+        ("stem temporal 83->64 (3,1,1)", (32, 83, 16, 56, 56), 64,
+         (3, 1, 1), 1, (1, 0, 0)),
+        ("conv2 temporal 144->64 (3,1,1)", (32, 144, 16, 56, 56), 64,
+         (3, 1, 1), 1, (1, 0, 0)),
+        ("conv5 spatial 512->921 (1,3,3)", (32, 512, 2, 7, 7), 921,
+         (1, 3, 3), 1, (0, 1, 1)),
+        ("conv5 temporal 921->512 (3,1,1)", (32, 921, 2, 7, 7), 512,
+         (3, 1, 1), 1, (1, 0, 0)),
+    ]
+    for name, shape, out, k, st, pad in shapes:
+        x = torch.randn(shape, device=dev, dtype=torch.bfloat16).to(
+            memory_format=torch.channels_last_3d).requires_grad_(shape[1] > 3)
+        w = torch.randn((out, shape[1], *k), device=dev,
+                        dtype=torch.bfloat16).to(
+            memory_format=torch.channels_last_3d).requires_grad_()
+        y = F.conv3d(x, w, None, st, pad)
+        g = torch.randn_like(y)
+        y.backward(g)                                # warm-up
+        torch.cuda.synchronize()
+        for what in ("forward", "backward"):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                if what == "forward":
+                    with torch.no_grad():
+                        F.conv3d(x, w, None, st, pad)
+                else:
+                    F.conv3d(x, w, None, st, pad).backward(g)
+                torch.cuda.synchronize()
+            for e in prof.key_averages():
+                us = float(getattr(e, "self_device_time_total",
+                                   getattr(e, "self_cuda_time_total", 0.0)))
+                if us > 0:
+                    print(f"profile odd conv {name} {what}: "
+                          f"{us / 1e3:8.3f} ms {e.key[:120]}", flush=True)
+        del x, w, y, g
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1233,6 +1389,14 @@ def main(argv=None) -> int:
     # K3 on the zoo's pretrain clips, f32 [B, 32, 112, 112, 3]
     color_zoo = {arch: time_color(dev, batch=b, frames=32, size=112)
                  for arch, b in ZOO_BATCH.items()}
+    # phase 10's sites: K1/K2 bf16 at TSM's stem pool (the q batch; K1 also
+    # at the fused key batch), K3 on the TSM and R(2+1)D clips
+    check_pool_fwd(dev, 2 * P10_PRETRAIN["tsm"][1], sites=TSM_POOL_SITES,
+                   dtypes=("bfloat16",))
+    pool_zoo["tsm_pretrain"] = time_pool(dev, P10_PRETRAIN["tsm"][1],
+                                         "bfloat16", sites=TSM_POOL_SITES)
+    for leg, (_, b, frames, _) in P10_PRETRAIN.items():
+        color_zoo[leg] = time_color(dev, batch=b, frames=frames, size=112)
 
     with tempfile.TemporaryDirectory() as exp:
         trained = main_path(MAIN_BATCH, os.path.join(exp, "train"),  # 4
@@ -1260,6 +1424,24 @@ def main(argv=None) -> int:
         paths["visualization"] = visualization_path(                  # 9
             os.path.join(exp, "visualization"),
             trained["checkpoint"])["launches"]
+        torch.cuda.empty_cache()
+        legs = {}
+        for leg, (config, b, frames, calls) in P10_PRETRAIN.items():  # 10
+            gc.collect()    # each leg's peak memory is its own
+            legs[leg] = zoo_pretrain_path(
+                leg, os.path.join(exp, leg), args.profile, config=config,
+                batch=b, frames=frames, pool_calls=calls)
+            paths[f"{leg}_pretrain"] = legs[leg]["launches"]
+            torch.cuda.empty_cache()
+        for model_type in ("multitask", "1stream"):
+            gc.collect()
+            ft = r2plus1d_finetune_path(
+                os.path.join(exp, f"r2plus1d_ft_{model_type}"),
+                legs["r2plus1d"]["checkpoint"], model_type)
+            paths[f"r2plus1d_finetune_{model_type}"] = ft["launches"]
+            torch.cuda.empty_cache()
+        if args.profile:
+            profile_odd_convs(dev)
     launches, launches_ft = trained["launches"], finetuned["launches"]
 
     def path_keys(name, key):

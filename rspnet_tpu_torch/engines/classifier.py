@@ -18,7 +18,7 @@ updates), and BN runs in eval mode.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -53,15 +53,18 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
     return lse - logits.gather(-1, labels.long()[:, None])[:, 0]
 
 
-def classify(model: nn.Module, clips: torch.Tensor,
-             n_crop: int = 1) -> torch.Tensor:
-    """[B, n_crop*T, S, S, C] -> logits [B, C], averaged over the crops."""
+def classify(model: nn.Module, clips: torch.Tensor, n_crop: int = 1,
+             **model_kw) -> torch.Tensor:
+    """[B, n_crop*T, S, S, C] -> logits [B, C], averaged over the crops.
+    The model is a finetune ``MultiTaskWrapper`` or (``1stream``) a bare
+    backbone with its own classifier, whose output is its logits (TSM's
+    the consensus mean over frames)."""
     B = clips.shape[0]
     x = clips
     if n_crop > 1:
         T = clips.shape[1] // n_crop
         x = clips.reshape((B * n_crop, T) + tuple(clips.shape[2:]))
-    out = model(x)
+    out = model(x, **model_kw)
     if n_crop > 1:
         out = _mean(out.reshape(B, n_crop, -1), dim=1)
     return out
@@ -69,14 +72,21 @@ def classify(model: nn.Module, clips: torch.Tensor,
 
 def train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                clips: torch.Tensor, labels: torch.Tensor, *,
-               n_crop: int = 1, only_train_fc: bool = False
+               n_crop: int = 1, only_train_fc: bool = False,
+               dropout_mask: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None
                ) -> Dict[str, torch.Tensor]:
     """One SGD step on the cross entropy; returns loss, acc1, acc5 (device
-    tensors; top-k clamped at the number of classes)."""
+    tensors; top-k clamped at the number of classes). A model with a
+    dropout head (S3D-G's ``1stream`` classifier) keeps ``dropout_mask``,
+    or draws its mask from ``generator``."""
     if only_train_fc:
         freeze_backbone(model)
     model.train(not only_train_fc)      # the linear probe pins BN to eval
-    logits = classify(model, clips, n_crop)
+    model_kw = {}
+    if getattr(model, "drop_prob", None) is not None:
+        model_kw = {"dropout_mask": dropout_mask, "generator": generator}
+    logits = classify(model, clips, n_crop, **model_kw)
     loss = _mean(cross_entropy(logits, labels))
     optimizer.zero_grad(set_to_none=True)
     loss.backward()

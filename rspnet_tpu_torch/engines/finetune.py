@@ -23,9 +23,12 @@ optimizer, scheduler``, the JAX engine's layout (finetune.py:373-384)
 with the torch optimizer state, so the JAX package's ``load_model_only``
 reads them; this engine reads the JAX package's files the same way.
 
-Not ported yet (each raises NotImplementedError): ``model_type`` other
-than ``multitask``, more than one card, ``cache_device`` and the 2-D
-``parallel:`` layout.
+``model_type`` ``multitask`` trains a ``MultiTaskWrapper`` (backbone and
+``fc``), ``1stream`` the backbone with its own classifier; S3D-G's dropout
+draws its masks from the engine's ``torch.Generator`` (seed + 1).
+
+Not ported yet (each raises NotImplementedError): more than one card,
+``cache_device`` and the 2-D ``parallel:`` layout.
 """
 from __future__ import annotations
 
@@ -70,23 +73,22 @@ def summary_writer(logdir):
 
 
 def build_classifier_model(cfg: ConfigTree, dtype=None):
-    """-> (model, model_type); ``multitask`` only (rspnet_tpu/engines/
-    finetune.py:36-51)."""
+    """-> (model, model_type) (rspnet_tpu/engines/finetune.py:36-51):
+    ``1stream`` is the backbone with its own classifier (S3D-G's dropout
+    and ``fc``, C3D's and R(2+1)D's ``linear``, ResNet's ``fc``, TSM's
+    per-segment ``new_fc``), ``multitask`` a ``MultiTaskWrapper`` with the
+    ``fc`` classifier. Every ``model.*`` key goes to the backbone."""
     model_cfg = cfg.get_config("model").as_plain_dict()
-    arch = model_cfg.pop("arch")
-    if model_cfg:
-        raise NotImplementedError(f"model keys {sorted(model_cfg)} are not "
-                                  f"ported yet")
+    factory = get_model_class(model_cfg.pop("arch"), **model_cfg)
     num_classes = cfg.get_int("dataset.num_classes")
     model_type = cfg.get_string("model_type", "1stream")
+    if model_type == "1stream":
+        return factory(num_classes=num_classes, with_classifier=True,
+                       dtype=dtype), model_type
     if model_type == "multitask":
-        return MultiTaskWrapper(get_model_class(arch)(dtype=dtype),
+        return MultiTaskWrapper(factory(dtype=dtype),
                                 num_classes=num_classes, dtype=dtype,
                                 finetune=True), model_type
-    if model_type == "1stream":
-        raise NotImplementedError(
-            "model_type '1stream' (the backbone's own dropout classifier) "
-            "is not ported yet (see ROADMAP.md)")
     raise ValueError(f'Unrecognized model_type "{model_type}"')
 
 
@@ -124,6 +126,9 @@ class FinetuneEngine:
         self.model = model.to(self.device,
                               memory_format=torch.channels_last_3d)
         self.arch = cfg.get_string("model.arch")
+        # S3D-G's 1stream dropout masks
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed + 1)
         # the linear probe: the train step freezes the backbone
         self.only_train_fc = cfg.get_bool("only_train_fc", False)
         # precise-BN batches before the first epoch of a fresh run
@@ -218,9 +223,10 @@ class FinetuneEngine:
     # -- loading ----------------------------------------------------------
     def load_moco_checkpoint(self, path) -> None:
         """``--mc``: the backbone from a pretrain checkpoint of either
-        package or of the reference; ``fc`` stays as built."""
+        package or of the reference; the classifier stays as built."""
         merge_encoder_into(self.model, load_pretrained_encoder(path,
-                                                               self.arch))
+                                                               self.arch),
+                           self.model_type)
 
     def load_checkpoint(self, path) -> None:
         """Resume (``--load-checkpoint``): model, optimizer, scheduler,
@@ -302,7 +308,7 @@ class FinetuneEngine:
             labels = torch.from_numpy(batch["labels"]).to(self.device)
             metrics = classifier.train_step(
                 self.model, self.optimizer, clips, labels,
-                only_train_fc=self.only_train_fc)
+                only_train_fc=self.only_train_fc, generator=self.generator)
             spool.append(torch.stack([metrics[k].float()
                                       for k in TRAIN_KEYS]),
                          n=batch["labels"].shape[0])

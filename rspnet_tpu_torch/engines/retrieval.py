@@ -27,9 +27,12 @@ its accelerator saves those bf16 arrays and ranks them in numpy as bf16;
 this engine saves and ranks them as f32 arrays, which hold the same values
 exactly.
 
-Not ported yet (each raises NotImplementedError): ``model_type`` other
-than ``multitask``, more than one card, ``cache_device`` and the 2-D
-``parallel:`` layout.
+``model_type`` ``multitask`` takes the features of the wrapper's
+encoder, ``1stream`` those of the bare backbone (its classifier unused),
+as the JAX engine's ``method="features"`` does (retrieval.py:93).
+
+Not ported yet (each raises NotImplementedError): more than one card,
+``cache_device`` and the 2-D ``parallel:`` layout.
 """
 from __future__ import annotations
 
@@ -46,6 +49,7 @@ from ..data.pipeline import build_loader
 from ..framework import load_state
 from ..models.common import global_avg_pool
 from ..models.convert import load_variables
+from ..moco import MultiTaskWrapper
 from ..ops.augment import _sample_crop_box, center_crop_params, eval_preprocess
 from .classifier import _mean
 from .finetune import _unsupported, build_classifier_model
@@ -60,15 +64,17 @@ TOPK = (1, 5, 10, 20, 50)
 
 @torch.no_grad()
 def crop_features(model, clips: torch.Tensor, n_crop: int) -> torch.Tensor:
-    """[B, n_crop*T, S, S, 3] -> [B, feature_dim]: the encoder's feature
-    map per crop (the model in eval mode), its global average, the mean
-    over crops, in the compute dtype (retrieval.py:85-97)."""
+    """[B, n_crop*T, S, S, 3] -> [B, feature_dim]: the backbone's feature
+    map per crop (the model in eval mode; a ``MultiTaskWrapper``'s
+    encoder, or the ``1stream`` backbone itself), its global average, the
+    mean over crops, in the compute dtype (retrieval.py:85-97)."""
     B = clips.shape[0]
     x = clips
     if n_crop > 1:
         T = clips.shape[1] // n_crop
         x = clips.reshape((B * n_crop, T) + tuple(clips.shape[2:]))
-    f = global_avg_pool(model.encoder.features(x.permute(0, 4, 1, 2, 3)))
+    backbone = model.encoder if isinstance(model, MultiTaskWrapper) else model
+    f = global_avg_pool(backbone.features(x.permute(0, 4, 1, 2, 3)))
     if n_crop > 1:
         f = _mean(f.reshape(B, n_crop, -1), dim=1)
     return f
@@ -113,7 +119,7 @@ class RetrievalEngine:
             getattr(args, "seed", None) or 0)
 
         torch.manual_seed(cfg.get_int("seed", 0))
-        model, _ = build_classifier_model(cfg, self.dtype)
+        model, self.model_type = build_classifier_model(cfg, self.dtype)
         self.model = model.to(self.device,
                               memory_format=torch.channels_last_3d).eval()
         self.arch = cfg.get_string("model.arch")
@@ -132,9 +138,11 @@ class RetrievalEngine:
 
     def load_moco_checkpoint(self, path) -> None:
         """``--mc``: the backbone from a pretrain checkpoint of either
-        package or of the reference; ``fc`` stays as built (unused)."""
+        package or of the reference; the classifier stays as built
+        (unused)."""
         merge_encoder_into(self.model, load_pretrained_encoder(path,
-                                                               self.arch))
+                                                               self.arch),
+                           self.model_type)
 
     def load_model_checkpoint(self, path) -> None:
         """``--load-model``: a finetune checkpoint of either package."""

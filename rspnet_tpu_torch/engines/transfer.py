@@ -15,7 +15,8 @@ the backbone:
 - a third-party torch state dict (``state_dict``, optional ``module.``).
 
 ``merge_encoder_into`` loads it into a ``MultiTaskWrapper``'s encoder and
-keeps the freshly built model's ``fc`` (transfer.py:70-90).
+keeps the freshly built model's ``fc``, or (``1stream``) into the bare
+backbone and keeps its own classifier (transfer.py:70-90).
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from torch import nn
 
 from ..framework.checkpoint import _from_torch_tree, load_state
 from ..models.convert import variables_to_state_dict
+from .classifier import FC_NAMES
 
 logger = logging.getLogger(__name__)
 
@@ -70,15 +72,28 @@ def _from_torch_flat(state: dict, prefix: str) -> Dict[str, np.ndarray]:
     return stripped
 
 
-def merge_encoder_into(model: nn.Module, encoder_state: Dict) -> None:
-    """Load a backbone state_dict into ``model.encoder`` (a finetune
-    ``MultiTaskWrapper``); its ``fc`` stays as built. Backbone entries the
-    file lacks keep their fresh values, with a warning (the reference
-    loads with strict=False)."""
-    enc = model.encoder
-    sd = enc.state_dict()
+def merge_encoder_into(model: nn.Module, encoder_state: Dict,
+                       model_type: str = "multitask") -> None:
+    """Load a backbone state_dict into the classifier model: ``multitask``
+    into ``model.encoder`` (its ``fc`` stays as built); ``1stream`` into
+    the backbone itself, every entry but its classifier heads (``fc``,
+    ``linear``, ``head``, ``new_fc``), which keep their fresh values
+    (rspnet_tpu/engines/transfer.py:84-90). Backbone entries the file
+    lacks keep their fresh values, with a warning (the reference loads
+    with strict=False)."""
+    if model_type == "multitask":
+        target = model.encoder
+    elif model_type == "1stream":
+        target = model
+        encoder_state = {k: v for k, v in encoder_state.items()
+                         if k.split(".")[0] not in FC_NAMES}
+    else:
+        raise ValueError(f'Unrecognized model_type "{model_type}"')
+    sd = target.state_dict()
     missing = [k for k in sd if k not in encoder_state
-               and not k.endswith("num_batches_tracked")]
+               and not k.endswith("num_batches_tracked")
+               and not (model_type == "1stream"
+                        and k.split(".")[0] in FC_NAMES)]
     if missing:
         logger.warning("Missing backbone keys: %s", missing)
     unused = [k for k in encoder_state if k not in sd]
@@ -91,4 +106,4 @@ def merge_encoder_into(model: nn.Module, encoder_state: Dict) -> None:
         if tuple(v.shape) != tuple(sd[k].shape):
             raise ValueError(f"{k}: {tuple(v.shape)} != {tuple(sd[k].shape)}")
         sd[k] = v.to(sd[k].dtype)
-    enc.load_state_dict(sd)
+    target.load_state_dict(sd)

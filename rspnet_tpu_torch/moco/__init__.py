@@ -11,11 +11,11 @@ def build_moco_model(cfg, dtype=None):
     dtype of the backbone and the heads (None: the input's)."""
     from ..models import get_model_class
 
+    # every model.* key goes to the backbone's constructor, as in
+    # rspnet_tpu/moco/__init__.py:23-29 (tsm-r18's base_model and
+    # num_segments); a key the arch does not read raises
     model_cfg = cfg.get_config("model").as_plain_dict()
-    arch = model_cfg.pop("arch")
-    if model_cfg:
-        raise NotImplementedError(f"model keys {sorted(model_cfg)} are not "
-                                  f"ported yet")
+    factory = get_model_class(model_cfg.pop("arch"), **model_cfg)
     if not cfg.get_list("moco.diff_speed"):
         raise ValueError("moco.diff_speed must be a non-empty list (e.g. [2])")
     moco_cfg = MoCoConfig(
@@ -28,7 +28,7 @@ def build_moco_model(cfg, dtype=None):
         loss_lambda_a=cfg.get_float("loss_lambda.A", 1.0),
         loss_lambda_m=cfg.get_float("loss_lambda.M", 1.0),
     )
-    model = MultiTaskWrapper(get_model_class(arch)(dtype=dtype),
+    model = MultiTaskWrapper(factory(dtype=dtype),
                              num_classes=moco_cfg.dim,
                              fc_type=moco_cfg.fc_type, dtype=dtype)
     return model, moco_cfg

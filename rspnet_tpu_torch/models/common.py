@@ -52,10 +52,14 @@ def conv3d(conv: nn.Conv3d, x: torch.Tensor,
            dtype: Optional[torch.dtype]) -> torch.Tensor:
     """``conv`` as flax's ``nn.Conv(dtype=...)`` computes it: input, weight
     and bias cast to ``dtype`` (the input's dtype if None), the bias added
-    to the rounded convolution."""
+    to the rounded convolution. The output keeps a channels-last input's
+    memory format (cuDNN keeps it; the CPU's one-thread 1^3 convolution
+    returns NCDHW, which would put a copy before the next pool)."""
     dt = dtype or x.dtype
     y = F.conv3d(x.to(dt), conv.weight.to(dt), None, conv.stride,
                  conv.padding)
+    if x.is_contiguous(memory_format=torch.channels_last_3d):
+        y = y.contiguous(memory_format=torch.channels_last_3d)
     if conv.bias is not None:
         y = y + conv.bias.to(dt).view(-1, 1, 1, 1)
     return y
@@ -111,6 +115,31 @@ class ConvBN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv_bn(self.conv3d, self.bn, x, self.dtype)
+
+
+class ConvNorm(nn.Module):
+    """The JAX package's ``ConvBN`` under its own child names (``conv``,
+    ``bn``), for backbones and heads whose module names follow the JAX
+    tree: a conv (with a bias if ``use_bias``), an optional BN and a ReLU
+    unless ``activation`` is False (rspnet_tpu/models/common.py:176)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: IntOr3, stride: IntOr3 = 1,
+                 padding: IntOr3 = 0, use_bias: bool = False,
+                 use_bn: bool = True, activation: bool = True,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.conv = make_conv(in_channels, out_channels, kernel_size, stride,
+                              padding, use_bias)
+        self.bn = BatchNorm(out_channels, dtype=dtype) if use_bn else None
+        self.activation = activation
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = conv3d(self.conv, x, self.dtype)
+        if self.bn is not None:
+            y = self.bn(y)
+        return torch.relu(y) if self.activation else y
 
 
 def max_pool3d(x: torch.Tensor, kernel, strides, padding=0) -> torch.Tensor:

@@ -1,14 +1,23 @@
-"""JAX variables <-> the port's ``state_dict`` (port of the S3D-G, C3D and
-ResNet-3D parts of rspnet_tpu/models/torch_bridge.py, both ways).
+"""JAX variables <-> the port's ``state_dict`` (port of the S3D-G, C3D,
+ResNet-3D and R(2+1)D parts of rspnet_tpu/models/torch_bridge.py, both
+ways, and of the TSM and head trees of the JAX modules).
 
 The JAX side is a ``{"params", "batch_stats"}`` pair of trees whose leaves
 are numpy arrays (or CPU tensors, as a checkpoint holds them). The model is
-a bare backbone (``S3DG``, ``C3D``, ``ResNet3D``), a pretraining
-``MultiTaskWrapper``
-(``encoder`` + ``fc1``/``fc2`` linear heads) or a finetuning one
-(``encoder`` + the ``fc`` classifier). ``state_dict_to_variables`` is the
-inverse of ``variables_to_state_dict``: the checkpoints of both packages
-hold its output.
+a bare backbone (``S3DG``, ``C3D``, ``ResNet3D``, ``R2Plus1DNet``,
+``TSM``), with or without its own classifier (``model_type: 1stream``), a
+pretraining ``MultiTaskWrapper`` (``encoder`` + ``fc1``/``fc2`` heads of
+one ``fc_type``) or a finetuning one (``encoder`` + the ``fc``
+classifier). ``state_dict_to_variables`` is the inverse of
+``variables_to_state_dict``: the checkpoints of both packages hold its
+output.
+
+What the arch name does not fix is read from the source's own names, as
+a wrapper's kind is: the heads' ``fc_type`` (``fc1.hidden``: mlp;
+``fc1.conv2``: conv; ``fc1.conv1`` alone: convbn; else linear, which
+speednet's heads are too), and TSM's blocks (``layer{s}_{i}``, a
+``conv3`` for the bottleneck base, ``nl{s}_{i}`` non-local blocks), whose
+port names are the JAX tree's.
 
 Tensor conventions:
 - flax conv kernel [kt, kh, kw, I, O] <-> torch Conv3d weight
@@ -19,8 +28,9 @@ Tensor conventions:
 
 Some tensors of a backbone exist only in some builds of it: a ResNet
 block's ``downsample`` (shortcut B, not A) and a bare backbone's own
-classifier (``fc``, ``linear``). Their entries are skipped where the source
-lacks them; ``load_converted`` still requires every tensor of the module.
+classifier (``fc``, ``linear``, ``new_fc``). Their entries are skipped
+where the source lacks them; ``load_converted`` still requires every
+tensor of the module.
 """
 from __future__ import annotations
 
@@ -136,10 +146,75 @@ def _resnet_mapping(layers, bottleneck: bool) -> list:
     return m + _dense("fc", "fc")
 
 
+def _stconv_mapping(t: str, f: str) -> list:
+    """An R(2+1)D ``SpatioTemporalConv``: the spatial conv and its BN, the
+    bare temporal conv (torch_bridge.py:_stconv_mapping)."""
+    m = _conv_bn(f"{t}.spatial_conv", f"{t}.bn", f"{f}/spatial")
+    return m + [(f"{t}.temporal_conv.weight",
+                 ("params", f"{f}/temporal/conv/kernel", _conv_w))]
+
+
+def _r2plus1d_mapping(layer_sizes) -> list:
+    """The reference torch names (torch_bridge.py:_r2plus1d_mapping)."""
+    m = _stconv_mapping("conv1", "conv1") + _bn("bn1", "bn1")
+    for s, blocks in enumerate(layer_sizes):
+        for i in range(blocks):
+            t = (f"conv{s + 2}.block1" if i == 0
+                 else f"conv{s + 2}.blocks.{i - 1}")
+            f = f"conv{s + 2}_{i}"
+            for c in (1, 2):
+                m += _stconv_mapping(f"{t}.conv{c}", f"{f}/conv{c}")
+                m += _bn(f"{t}.bn{c}", f"{f}/bn{c}")
+            if s > 0 and i == 0:
+                m += _stconv_mapping(f"{t}.downsampleconv",
+                                     f"{f}/downsampleconv")
+                m += _bn(f"{t}.downsamplebn", f"{f}/downsamplebn")
+    return m + _dense("linear", "linear")
+
+
+def _conv_with_bias(t: str, f: str) -> list:
+    return [(f"{t}.weight", ("params", f"{f}/kernel", _conv_w)),
+            (f"{t}.bias", ("params", f"{f}/bias", None))]
+
+
+def _same_name_convbn(t: str, bias: bool = False, bn: bool = True) -> list:
+    """A ``ConvNorm`` whose torch names are its JAX path's (``t.conv``,
+    ``t.bn``)."""
+    f = t.replace(".", "/")
+    m = (_conv_with_bias(f"{t}.conv", f"{f}/conv") if bias else
+         [(f"{t}.conv.weight", ("params", f"{f}/conv/kernel", _conv_w))])
+    return m + (_bn(f"{t}.bn", f"{f}/bn") if bn else [])
+
+
+def _tsm_mapping(names) -> list:
+    """TSM from the blocks its source holds: ``layer{s}_{i}`` (a
+    ``conv3``: the bottleneck base) and ``nl{s}_{i}``."""
+    tops = {n.split(".")[0] for n in names}
+    bottleneck = any(n.startswith("layer1_0.conv3.") for n in names)
+    m = _same_name_convbn("stem")
+    for s in range(1, 5):
+        i = 0
+        while f"layer{s}_{i}" in tops:
+            b = f"layer{s}_{i}"
+            for c in range(1, (3 if bottleneck else 2) + 1):
+                m += _same_name_convbn(f"{b}.conv{c}")
+            if i == 0 and (s > 1 or bottleneck):
+                m += _same_name_convbn(f"{b}.downsample")
+            nl = f"nl{s}_{i}"
+            if nl in tops:
+                for conv in ("theta", "phi", "g", "w"):
+                    m += _conv_with_bias(f"{nl}.{conv}", f"{nl}/{conv}")
+                m += _bn(f"{nl}.bn", f"{nl}/bn")
+            i += 1
+    return m + _dense("new_fc", "new_fc")
+
+
 KEY_MAPPERS = {
-    "s3dg": lambda: _s3dg_mapping(True),
-    "s3d": lambda: _s3dg_mapping(False),
+    "s3dg": lambda: _s3dg_mapping(True) + _dense("fc", "fc"),
+    "s3d": lambda: _s3dg_mapping(False) + _dense("fc", "fc"),
     "c3d": _c3d_mapping,
+    "r2plus1d-vcop": lambda: _r2plus1d_mapping((1, 1, 1, 1)),
+    "r2plus1d-18": lambda: _r2plus1d_mapping((2, 2, 2, 2)),
     **{arch: partial(_resnet_mapping, layers, block is Bottleneck)
        for arch, (block, layers) in DEPTHS.items()},
 }
@@ -147,29 +222,74 @@ KEY_MAPPERS = {
 
 def _optional(key_t: str) -> bool:
     """A backbone tensor that only some builds have (module docstring)."""
-    return ".downsample." in key_t or key_t.split(".")[0] in ("fc", "linear")
+    return ".downsample." in key_t or key_t.split(".")[0] in (
+        "fc", "linear", "new_fc")
 
 
-def _model_mapping(arch: str, wrapper: bool, heads: str):
+def _head_mapping(h: str, fc_type: str) -> list:
+    """One pretraining head, ``fc1`` or ``fc2`` (rspnet_tpu/moco/
+    wrapper.py:21-75); speednet's heads are linear ones."""
+    m = []
+    if fc_type == "mlp":
+        m += _dense(f"{h}.hidden", f"{h}/hidden")
+    elif fc_type in ("conv", "convbn"):
+        m += _same_name_convbn(f"{h}.conv1", bias=True,
+                               bn=fc_type == "convbn")
+        if fc_type == "conv":
+            m += _same_name_convbn(f"{h}.conv2", bias=True, bn=False)
+    return m + _dense(f"{h}.linear", f"{h}/linear")
+
+
+def _fc_type(names) -> str:
+    """The pretraining heads' kind, from the source's names."""
+    if any(n.startswith("fc1.hidden.") for n in names):
+        return "mlp"
+    if any(n.startswith("fc1.conv2.") for n in names):
+        return "conv"
+    if any(n.startswith("fc1.conv1.") for n in names):
+        return "convbn"
+    return "linear"
+
+
+def _model_mapping(arch: str, names):
     """-> (entries, optional keys): (torch key, (collection, JAX path,
-    conversion)) of every tensor of a backbone (``wrapper`` False) or a
-    ``MultiTaskWrapper`` with the pretraining heads (``heads`` "pretrain")
-    or the classifier ("finetune"), and the torch keys of the backbone's
-    optional tensors."""
-    if arch not in KEY_MAPPERS:
+    conversion)) of every tensor of the model whose source holds
+    ``names`` (dotted: torch keys, or JAX paths joined with "."), and the
+    torch keys of the backbone's optional tensors. The model is a
+    backbone, or (an ``encoder.`` entry) a ``MultiTaskWrapper`` with the
+    classifier (an ``fc.`` entry) or the pretraining heads."""
+    wrapper = any(n.startswith("encoder.") for n in names)
+    if arch == "tsm":            # its blocks are read from the source
+        m = _tsm_mapping([n[len("encoder."):] for n in names
+                          if n.startswith("encoder.")] if wrapper
+                         else list(names))
+    elif arch in KEY_MAPPERS:
+        m = KEY_MAPPERS[arch]()
+    else:
         raise NotImplementedError(
             f"no port mapping for arch {arch!r} (see ROADMAP.md)")
-    m = KEY_MAPPERS[arch]()
     optional = {t for t, _ in m if _optional(t)}
     if not wrapper:
         return m, optional
     m = [(f"encoder.{t}", (coll, f"encoder/{f}", conv))
          for t, (coll, f, conv) in m]
     optional = {f"encoder.{t}" for t in optional}
-    if heads == "pretrain":
-        return m + _dense("fc1.linear", "fc1/linear") + _dense(
-            "fc2.linear", "fc2/linear"), optional
-    return m + _dense("fc", "fc"), optional
+    if any(n.startswith("fc.") for n in names):
+        return m + _dense("fc", "fc"), optional
+    fc_type = _fc_type(names)
+    return m + _head_mapping("fc1", fc_type) + _head_mapping(
+        "fc2", fc_type), optional
+
+
+def _tree_names(tree: Mapping, prefix: str = "") -> list:
+    """Dotted paths of a tree's leaves."""
+    out = []
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out += _tree_names(v, f"{prefix}{k}.")
+        else:
+            out.append(f"{prefix}{k}")
+    return out
 
 
 def _get_path(tree: Mapping, path: str):
@@ -198,10 +318,8 @@ def variables_to_state_dict(variables: Mapping, arch: str = "s3dg"
     entries (numpy)."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
-    wrapper = "encoder" in params
-    heads = "finetune" if wrapper and "fc" in params else "pretrain"
     out: Dict[str, np.ndarray] = {}
-    mapping, optional = _model_mapping(arch, wrapper, heads)
+    mapping, optional = _model_mapping(arch, _tree_names(params))
     for key_t, (coll, path_f, conv) in mapping:
         tree = params if coll == "params" else stats
         try:
@@ -219,9 +337,7 @@ def state_dict_to_variables(state_dict: Mapping, arch: str = "s3dg"
     """Port state_dict -> JAX ``{"params", "batch_stats"}`` trees of numpy
     arrays, in the tensors' dtype; every entry but BN's
     ``num_batches_tracked`` must be mapped."""
-    wrapper = any(k.startswith("encoder.") for k in state_dict)
-    heads = "finetune" if "fc.weight" in state_dict else "pretrain"
-    mapping, optional = _model_mapping(arch, wrapper, heads)
+    mapping, optional = _model_mapping(arch, list(state_dict))
     mapped = {key_t for key_t, _ in mapping}
     extra = [k for k in state_dict if k not in mapped
              and not k.endswith("num_batches_tracked")]

@@ -16,7 +16,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from .common import ConvBN, MaxPool3d, conv3d, global_avg_pool
+from .common import ConvBN, MaxPool3d, conv3d, dense, global_avg_pool
 
 _BN = dict(bn_eps=1e-3, bn_momentum=0.999)
 
@@ -84,12 +84,18 @@ INC_CHANNELS = [
 
 
 class S3DG(nn.Module):
-    """Backbone without the classifier (pretraining builds it that way)."""
+    """The backbone, and with ``with_classifier`` (``model_type:
+    1stream``) dropout then the ``fc`` classifier
+    (rspnet_tpu/models/s3dg.py:116-138). Pretraining builds it without."""
 
     feature_dim = 1024
 
-    def __init__(self, gate: bool = True, dtype: Optional[torch.dtype] = None):
+    def __init__(self, gate: bool = True, num_classes: int = 400,
+                 drop_prob: float = 0.5, with_classifier: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
+        self.drop_prob = drop_prob
         layers = OrderedDict()
         layers["sepConv1"] = SepConv(3, 64, 7, 2, 3, gate, dtype)
         layers["maxPool1"] = MaxPool3d((1, 3, 3), (1, 2, 2), (0, 1, 1))
@@ -103,20 +109,40 @@ class S3DG(nn.Module):
             layers[name] = SepInc(c, oc, gate, dtype)
             c = oc[0] + oc[2] + oc[4] + oc[5]
         self.feature = nn.Sequential(layers)
+        self.fc = (nn.Linear(self.feature_dim, num_classes)
+                   if with_classifier else None)
 
     def features(self, x: torch.Tensor) -> torch.Tensor:
         """NCDHW (channels-last memory) -> feature map [B, 1024, t, h, w]."""
         return self.feature(x)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """NDHWC clip [B, T, H, W, 3] -> pooled features [B, 1024]."""
-        return global_avg_pool(self.features(x.permute(0, 4, 1, 2, 3)))
+    def forward(self, x: torch.Tensor,
+                dropout_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """NDHWC clip [B, T, H, W, 3] -> pooled features [B, 1024], or the
+        logits with the ``fc`` head. In train mode the head's dropout keeps
+        the features where ``dropout_mask`` [B, 1024] is True (drawn from
+        ``generator`` when not given) and scales them by 1 / (1 -
+        drop_prob), as flax's ``nn.Dropout``."""
+        out = global_avg_pool(self.features(x.permute(0, 4, 1, 2, 3)))
+        if self.fc is None:
+            return out
+        if self.training and self.drop_prob > 0:
+            keep = 1.0 - self.drop_prob
+            if dropout_mask is None:
+                gen_dev = (out.device if generator is None
+                           else generator.device)
+                dropout_mask = torch.rand(out.shape, generator=generator,
+                                          device=gen_dev) < keep
+            dropout_mask = dropout_mask.to(out.device, torch.bool)
+            out = torch.where(dropout_mask, out / keep, torch.zeros_like(out))
+        return dense(out, self.fc, self.dtype)
 
 
-def s3dg(dtype: Optional[torch.dtype] = None) -> S3DG:
-    return S3DG(gate=True, dtype=dtype)
+def s3dg(**kw) -> S3DG:
+    return S3DG(gate=True, **kw)
 
 
-def s3d(dtype: Optional[torch.dtype] = None) -> S3DG:
-    return S3DG(gate=False, dtype=dtype)
+def s3d(**kw) -> S3DG:
+    return S3DG(gate=False, **kw)
 

@@ -325,7 +325,7 @@ def ft_engine_args(exp, extra=""):
     return bootstrap(finetune_argv(exp, extra))
 
 
-@pytest.mark.parametrize("extra", [", model_type: '1stream'",
+@pytest.mark.parametrize("extra", [", model+: {arch: 'slowfast'}",
                                    ", cache_device: true",
                                    ", model+: {pretrain: true}"])
 def test_unported_options_raise(tmp_path, monkeypatch, extra):

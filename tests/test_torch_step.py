@@ -38,8 +38,10 @@ def _np_tree(tree):
     return jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), tree)
 
 
-def _port_model(params, stats, arch="s3dg"):
-    net = MultiTaskWrapper(port_model_class(arch)(), num_classes=DIM)
+def _port_model(params, stats, arch="s3dg", model_cfg=None,
+                fc_type="linear"):
+    net = MultiTaskWrapper(port_model_class(arch, **(model_cfg or {}))(),
+                           num_classes=DIM, fc_type=fc_type)
     net = net.double().to(memory_format=torch.channels_last_3d)
     load_converted(net, variables_to_state_dict(
         {"params": _np_tree(params), "batch_stats": _np_tree(stats)}, arch))
@@ -60,11 +62,14 @@ def test_train_step_matches_jax():
         _run()
 
 
-def _run(arch="s3dg"):
-    """One step of ``arch`` in both packages, compared (also run on C3D by
-    tests/test_torch_zoo_step.py)."""
-    jmodel = JaxWrapper(encoder_factory=get_model_class(arch),
-                        num_classes=DIM, fc_type="linear", axis_name=None)
+def _run(arch="s3dg", model_cfg=None, fc_type="linear"):
+    """One step of ``arch`` (built from ``model_cfg``, with ``fc_type``
+    heads) in both packages, compared (also run on C3D by
+    tests/test_torch_zoo_step.py, on TSM by tests/test_torch_tsm.py and
+    with the speednet heads by tests/test_torch_heads.py)."""
+    model_cfg = model_cfg or {}
+    jmodel = JaxWrapper(encoder_factory=get_model_class(arch, **model_cfg),
+                        num_classes=DIM, fc_type=fc_type, axis_name=None)
     rng = np.random.RandomState(0)
     variables = jax.jit(lambda k, v: jmodel.init(k, v, train=False))(
         jax.random.PRNGKey(0), jnp.zeros((1, T // 2, S, S, 3), jnp.float32))
@@ -80,7 +85,7 @@ def _run(arch="s3dg"):
     queue /= np.linalg.norm(queue, axis=0, keepdims=True)
 
     cfg = JaxMoCoConfig(dim=DIM, k=K, m=0.999, t=0.07, diff_speed=(2,),
-                        fc_type="linear", margin=2.0)
+                        fc_type=fc_type, margin=2.0)
     optimizer = optax.chain(optax.add_decayed_weights(1e-4),
                             optax.sgd(0.05, momentum=0.9))
     state = JaxState(params_q=params_q, params_k=params_k,
@@ -101,8 +106,8 @@ def _run(arch="s3dg"):
     speed_index = int(jax.random.randint(key_speed, (), 0, 1))
 
     # the port, from the same state
-    model_q = _port_model(params_q, stats, arch)
-    model_k = _port_model(params_k, stats, arch)
+    model_q = _port_model(params_q, stats, arch, model_cfg, fc_type)
+    model_k = _port_model(params_k, stats, arch, model_cfg, fc_type)
     for p in model_k.parameters():
         p.requires_grad_(False)
     opt = build_optimizer(ConfigTree.from_dict(
@@ -110,7 +115,8 @@ def _run(arch="s3dg"):
          "weight_decay": 1e-4}), model_q.parameters(), 0.05)
     pstate = MoCoState(model_q, model_k, torch.from_numpy(queue.copy()), 0,
                        opt)
-    pcfg = MoCoConfig(dim=DIM, k=K, m=0.999, t=0.07, diff_speed=(2,))
+    pcfg = MoCoConfig(dim=DIM, k=K, m=0.999, t=0.07, diff_speed=(2,),
+                      fc_type=fc_type)
     metrics = train_step(pstate, torch.from_numpy(x_q), torch.from_numpy(x_k),
                          pcfg, perm=torch.from_numpy(perm),
                          speed_index=speed_index)

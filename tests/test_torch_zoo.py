@@ -15,7 +15,8 @@ JAX package's, f64 on the CPU.
   the port's module -> state_dict -> variables gives back the same tree,
   leaf for leaf (the JAX modules' own structure).
 - The registry: every ported arch builds, with the JAX package's
-  ``feature_dim``; another raises naming ROADMAP.md.
+  ``feature_dim`` (TSM with its default resnet50 base); another raises
+  naming ROADMAP.md.
 
 The MoCo step on C3D is in tests/test_torch_zoo_step.py, the bf16 blocks
 in tests/test_torch_zoo_bf16.py (each file within its time budget), the
@@ -111,13 +112,12 @@ def _port(net):
     return net.double().to(memory_format=torch.channels_last_3d)
 
 
-@pytest.mark.parametrize("name", sorted(ARCHS))
-def test_backbone_forward_matches_jax(name):
-    arch, jax_factory, port_factory = ARCHS[name]
-    rng = np.random.RandomState(0)
-    x = rng.randn(2, T, S, S, 3)
-    jm = jax_factory(num_classes=NC)
-    v = _random_variables(jm, np.random.default_rng(0), np.float64)
+def backbone_forward_parity(jm, net, arch, x, seed=0):
+    """``jm`` (JAX) and ``net`` (port, with its classifier) on ``x`` in
+    train mode (the output and every updated BN statistic) and eval mode,
+    f64, with variables drawn in ``jm``'s structure; returns the port's
+    module."""
+    v = _random_variables(jm, np.random.default_rng(seed), np.float64)
     with enable_x64():
         @jax.jit
         def run(variables, xb):
@@ -128,7 +128,7 @@ def test_backbone_forward_matches_jax(name):
 
         out_j, stats_j, eval_j = run(v, jnp.asarray(x))
 
-    net = _port(port_factory(num_classes=NC, with_classifier=True))
+    net = _port(net)
     convert.load_converted(net, convert.variables_to_state_dict(v, arch))
     net.eval()
     np.testing.assert_allclose(net(torch.from_numpy(x)).detach().numpy(),
@@ -145,35 +145,37 @@ def test_backbone_forward_matches_jax(name):
     for k in stats:
         np.testing.assert_allclose(buffers[k].numpy(), want[k], atol=ATOL,
                                    rtol=RTOL, err_msg=k)
+    return net
 
 
-def _jax_tree(name, layout):
-    """Random f32 variables of the JAX module of ``layout``."""
-    _, jax_factory, _ = ARCHS[name]
-    if layout == "backbone":
-        jm = jax_factory(num_classes=NC)
-    else:
-        jm = JaxWrapper(encoder_factory=jax_factory,
-                        num_classes=NC if layout == "finetune" else DIM,
-                        finetune=layout == "finetune", axis_name=None)
-    return _random_variables(jm, np.random.default_rng(1), np.float32)
-
-
-def _port_module(name, layout):
-    _, _, port_factory = ARCHS[name]
-    if layout == "backbone":
-        return port_factory(num_classes=NC, with_classifier=True)
-    if layout == "finetune":
-        return MultiTaskWrapper(port_factory(), NC, finetune=True)
-    return MultiTaskWrapper(port_factory(), DIM)
-
-
-@pytest.mark.parametrize("layout", ["backbone", "pretrain", "finetune"])
 @pytest.mark.parametrize("name", sorted(ARCHS))
-def test_conversion_round_trip(name, layout):
-    arch = ARCHS[name][0]
-    v = _jax_tree(name, layout)
-    module = _port_module(name, layout)
+def test_backbone_forward_matches_jax(name):
+    arch, jax_factory, port_factory = ARCHS[name]
+    x = np.random.RandomState(0).randn(2, T, S, S, 3)
+    backbone_forward_parity(jax_factory(num_classes=NC),
+                            port_factory(num_classes=NC,
+                                         with_classifier=True), arch, x)
+
+
+def layout_modules(layout, jax_factory, port_factory):
+    """(JAX module, port module) of a bare backbone with its classifier,
+    a pretraining wrapper or a finetuning one."""
+    if layout == "backbone":
+        return (jax_factory(num_classes=NC),
+                port_factory(num_classes=NC, with_classifier=True))
+    if layout == "finetune":
+        return (JaxWrapper(encoder_factory=jax_factory, num_classes=NC,
+                           finetune=True, axis_name=None),
+                MultiTaskWrapper(port_factory(), NC, finetune=True))
+    return (JaxWrapper(encoder_factory=jax_factory, num_classes=DIM,
+                       axis_name=None),
+            MultiTaskWrapper(port_factory(), DIM))
+
+
+def round_trip(arch, jm, module):
+    """Random f32 variables of ``jm`` -> state_dict -> ``module`` ->
+    state_dict -> variables: the same tree back, leaf for leaf."""
+    v = _random_variables(jm, np.random.default_rng(1), np.float32)
     convert.load_converted(module, convert.variables_to_state_dict(v, arch))
     back = convert.state_dict_to_variables(module.state_dict(), arch)
     la, ta = jax.tree_util.tree_flatten(v)
@@ -184,9 +186,17 @@ def test_conversion_round_trip(name, layout):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("layout", ["backbone", "pretrain", "finetune"])
+@pytest.mark.parametrize("name", sorted(ARCHS))
+def test_conversion_round_trip(name, layout):
+    arch, jax_factory, port_factory = ARCHS[name]
+    round_trip(arch, *layout_modules(layout, jax_factory, port_factory))
+
+
 @pytest.mark.parametrize("arch", ["c3d", "resnet10", "resnet18", "resnet34",
                                   "resnet50", "resnet101", "resnet152",
-                                  "resnet200", "s3dg", "s3d"])
+                                  "resnet200", "s3dg", "s3d", "r2plus1d-vcop",
+                                  "r2plus1d-18", "tsm"])
 def test_registry_builds_every_ported_arch(arch):
     jm = jax_model_class(arch)(with_classifier=False)
     net = get_model_class(arch)()
@@ -198,4 +208,4 @@ def test_registry_builds_every_ported_arch(arch):
 
 def test_registry_rejects_unported_arch():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model_class("r2plus1d-18")
+        get_model_class("slowfast")
