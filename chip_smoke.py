@@ -88,6 +88,27 @@ Phases, each printing its own lines:
      instance that takes each. With ``--profile`` the two pretrain legs
      are traced, and R(2+1)D's odd-width convolutions (83 and 921 middle
      channels) are run alone under the profiler, naming their kernels.
+ 11. the rest of the zoo, bf16 at the published widths: 3 steps each of
+     ``rspnet_tpu_torch.pretrain.main`` on config/pretrain/moco-train-base
+     .jsonnet with ``arch: "slowfast"`` and the cfg_file
+     config/slowfast-configs/Kinetics/SLOWFAST_NLN_4x16_R50.yaml (read by
+     the port's YAML reader; batch 64, 112², 32 -> 16 frames, K 16384: K1
+     14 and K2 7 a step, the two stem pools and the five non-local pools
+     of the q pass and K1's of the fused key pass, all bf16; K3 once per q
+     and k clip) and with ``arch: "mfnet"`` (K1 2, K2 1 a step at its stem
+     pool); then ``rspnet_tpu_torch.finetune`` on
+     config/finetune/ucf101_resnet18.jsonnet ``-x add.r18k400``
+     (torchvision's r3d_18, random weights, the ``pretrain: true``
+     warning; batch 32 of 16 frames at 112², 96 train clips: 3 steps, one
+     validation batch of 8 clips, a final 10-crop validation of 8 clips:
+     K3 only). Before them, phases 2 and 3 hold K1/K2 bit-equal to their
+     plain versions in bf16 at each new pool site (SlowFast's slow stem
+     [B, 2, 56, 56, 64] and fast stem [B, 16, 56, 56, 8], its non-local
+     pools (1,2,2)/(1,2,2) on [B, 2, 14, 14, 512] and [B, 2, 7, 7, 1024],
+     whose last row and column lie in no window and take exactly 0 from
+     K2, MFNet's stem pool [B, 16, 56, 56, 16], C2D / I3D's (2,1,1)
+     temporal pool [B, 8, 28, 28, 256]) at batch 64 (K1 also at 128), and
+     time them. With ``--profile`` the three legs are traced.
 Then one JSON line with the kernels, the card line again, and the result
 line ``{"ok": true, "device": {...}}`` last. Any failure exits non-zero
 before the result line. Imports nothing of JAX or of rspnet_tpu.
@@ -216,7 +237,45 @@ P10_PRETRAIN = {  # leg -> (config, batch, frames, (K1, K2) calls a step)
     "r2plus1d": ("config/pretrain/r2plus1d.jsonnet", 32, 32, (0, 0)),
 }
 R21D_FT_CONFIG = "config/finetune/ucf101_r2plus1d.jsonnet"
-R21D_FT_BATCH, R21D_FT_FINAL = 8, 80
+R21D_FT_BATCH = 8
+# phase 11: the new pool sites ([T, H, W, C] per clip at a [B, 16, 112,
+# 112, 3] q clip): SlowFast's (rspnet_tpu_torch/models/slowfast.py; the
+# slow pathway sees T // alpha = 2 frames, the fast one 64 // beta_inv = 8
+# channels; SLOWFAST_NLN_4x16_R50 pools in 2 non-local blocks of res3 at
+# 14² and 3 of res4 at 7², where row and column 6 lie in no window),
+# MFNet's stem pool (models/mfnet.py) and C2D / I3D's temporal pool after
+# res2 (not on a leg of this phase: C2D_8x8_R50's 8 frames, res2's 256
+# channels)
+P11_POOL_SITES = {
+    "slowfast_pretrain": [
+        ("slowfast.slow_stem", (2, 56, 56, 64), (1, 3, 3), (1, 2, 2),
+         (0, 1, 1)),
+        ("slowfast.fast_stem", (16, 56, 56, 8), (1, 3, 3), (1, 2, 2),
+         (0, 1, 1)),
+        ("slowfast.nl_res3", (2, 14, 14, 512), (1, 2, 2), (1, 2, 2),
+         (0, 0, 0)),
+        ("slowfast.nl_res4", (2, 7, 7, 1024), (1, 2, 2), (1, 2, 2),
+         (0, 0, 0)),
+    ],
+    "mfnet_pretrain": [
+        ("mfnet.stem_pool", (16, 56, 56, 16), (1, 3, 3), (1, 2, 2),
+         (0, 1, 1)),
+    ],
+    "c2d_pool1": [
+        ("c2d.pool1", (8, 28, 28, 256), (2, 1, 1), (2, 1, 1), (0, 0, 0)),
+    ],
+}
+P11_BATCH = 64                 # batch_size of moco-train-base.jsonnet
+SLOWFAST_YAML = "config/slowfast-configs/Kinetics/SLOWFAST_NLN_4x16_R50.yaml"
+P11_PRETRAIN = {  # leg -> (the -x fields, (K1, K2) calls a step)
+    "slowfast": ('arch: "slowfast", model+: {cfg_file: "%s"}'
+                 % SLOWFAST_YAML, (14, 7)),
+    "mfnet": ('arch: "mfnet"', (2, 1)),
+}
+R3D18_FT_CONFIG = "config/finetune/ucf101_resnet18.jsonnet"
+# batch 32 (64 x its bs_factor 0.5), 3 train steps; 8 validation clips
+# (one batch), 8 clips x 10 crops in the final validation
+R3D18_FT_BATCH, R3D18_FT_VAL = 32, 8
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 
 
@@ -712,8 +771,9 @@ def _read_counters():
 
 
 def _main_argv(exp: str, *more: str,
-               config: str = "config/pretrain/s3dg.jsonnet"):
-    ext = '{dataset+: {name: "synthetic"}, device_geometry: true}'
+               config: str = "config/pretrain/s3dg.jsonnet", fields=""):
+    ext = ('{dataset+: {name: "synthetic"}, device_geometry: true%s}'
+           % (", " + fields if fields else ""))
     return ["-c", config, "-e", exp, "-x", ext, "-d", "--seed", "0",
             "--device", "cuda", *more]
 
@@ -825,14 +885,14 @@ def validate_path(exp: str, ckpt: str) -> dict:
 # ---------------------------------------------------------------------------
 
 def _finetune_argv(exp: str, *more: str, config: str = FT_CONFIG,
-                   ext: str = None):
+                   ext: str = None, mixins=()):
     # 12 train clips (3 steps of 4), 4 validation clips (one batch; 40
     # clips in the final 10-crop validation)
     ext = ext or ('{dataset+: {name: "synthetic", num_samples: 12, '
                   'val_num_samples: 4}, device_geometry: true, '
                   'bn_recalibrate: 1}')
-    return ["-c", config, "-e", exp, "-x", ext, "-d", "--seed", "0",
-            "--device", "cuda", *more]
+    return ["-c", config, "-e", exp, "-x", *mixins, ext, "-d", "--seed",
+            "0", "--device", "cuda", *more]
 
 
 def finetune_path(exp: str, pretrained: str, profile: bool = False) -> dict:
@@ -934,19 +994,21 @@ def finetune_validate_path(exp: str, ckpt: str) -> dict:
 
 def zoo_pretrain_path(arch: str, exp: str, profile: bool = False,
                       config: str = None, batch: int = None,
-                      frames: int = 32, pool_calls=None) -> dict:
-    """Phase 7 (and 10): 3 bf16 train steps of
-    ``config/pretrain/{arch}.jsonnet`` (published widths and batch, 112²,
-    ``frames`` -> half as many, K 16384) through the CLI; every K1/K2
-    launch bf16, K3 on each q and k clip. ``pool_calls`` (K1, K2) a step,
-    when given, are the exact launches; else both must be launched."""
+                      frames: int = 32, pool_calls=None,
+                      fields: str = "") -> dict:
+    """Phase 7 (and 10, 11): 3 bf16 train steps of
+    ``config/pretrain/{arch}.jsonnet`` (or ``config`` with the -x
+    ``fields``; published widths and batch, 112², ``frames`` -> half as
+    many, K 16384) through the CLI; every K1/K2 launch bf16, K3 on each q
+    and k clip. ``pool_calls`` (K1, K2) a step, when given, are the exact
+    launches; else both must be launched."""
     import torch
     from rspnet_tpu_torch import pretrain
 
     batch = batch or ZOO_BATCH[arch]
     config = config or f"config/pretrain/{arch}.jsonnet"
     plan = color_plan_line((batch, frames, 112, 112, 3), False)
-    argv = _main_argv(exp, config=config)
+    argv = _main_argv(exp, config=config, fields=fields)
     torch.cuda.reset_peak_memory_stats()
     _reset_counters()
     t0 = time.perf_counter()
@@ -966,7 +1028,9 @@ def zoo_pretrain_path(arch: str, exp: str, profile: bool = False,
     loss = engine.meters["loss"].avg
     steps = engine.step_times
     ckpt = os.path.join(exp, "checkpoint.pth.tar")
-    print(f"{arch} pretrain: batch {batch}, compute dtype {engine.dtype}, "
+    print(f"{arch} pretrain: batch {batch}, encoder "
+          f"{type(engine.state.model_q.encoder).__name__}, compute dtype "
+          f"{engine.dtype}, "
           f"{len(steps)} steps, step ms {[round(t, 1) for t in steps]}, "
           f"wall {wall:.1f} s, peak memory {peak:.2f} GiB, loss {loss:.4f}, "
           f"launches {counts}, K1/K2 launches by dtype {by_dtype}, plain "
@@ -1004,26 +1068,39 @@ def zoo_pretrain_path(arch: str, exp: str, profile: bool = False,
 
 
 # ---------------------------------------------------------------------------
-# phase 10: the R(2+1)D finetune (the pretrain legs are zoo_pretrain_path's)
+# phases 10 and 11: the R(2+1)D and r3d_18 finetune legs (the pretrain legs
+# are zoo_pretrain_path's)
 # ---------------------------------------------------------------------------
 
-def r2plus1d_finetune_path(exp: str, pretrained: str,
-                           model_type: str) -> dict:
-    """Phase 10: config/finetune/ucf101_r2plus1d.jsonnet with ``--mc`` from
-    the R(2+1)D pretrain leg, as ``model_type``: 3 bf16 train steps of 8
-    clips, one validation batch, the final 10-crop validation of 8 clips
-    (80 clip forwards in one batch). K3 on each train batch; no pool."""
+def finetune_leg(label: str, exp: str, pretrained, model_type: str,
+                 config: str = R21D_FT_CONFIG, batch: int = R21D_FT_BATCH,
+                 val_clips: int = R21D_FT_BATCH, mixins=(),
+                 profile: bool = False) -> dict:
+    """Phases 10 and 11: ``config`` (with the -x ``mixins``), from
+    ``pretrained`` by ``--mc`` when given, as ``model_type``: 3 bf16 train
+    steps of ``batch`` clips, one validation batch of ``val_clips`` clips,
+    the final 10-crop validation of ``val_clips`` clips in one batch. K3
+    on each train batch; no pool."""
     import torch
     from rspnet_tpu_torch import finetune
 
     ext = ('{dataset+: {name: "synthetic", num_samples: %d, '
            'val_num_samples: %d}, device_geometry: true, model_type: "%s"}'
-           % (3 * R21D_FT_BATCH, R21D_FT_BATCH, model_type))
+           % (3 * batch, val_clips, model_type))
+    more = ("--mc", pretrained) if pretrained else ()
+    argv = _finetune_argv(exp, *more, config=config, ext=ext, mixins=mixins)
     torch.cuda.reset_peak_memory_stats()
     _reset_counters()
     t0 = time.perf_counter()
-    engine, final = finetune.main(_finetune_argv(
-        exp, "--mc", pretrained, config=R21D_FT_CONFIG, ext=ext))
+    if profile:
+        from torch.profiler import ProfilerActivity
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts,
+                                    record_shapes=True) as prof:
+            engine, final = finetune.main(argv)
+            torch.cuda.synchronize()
+    else:
+        engine, final = finetune.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts, by_dtype, plain = _read_counters()
@@ -1031,34 +1108,60 @@ def r2plus1d_finetune_path(exp: str, pretrained: str,
     steps = engine.step_times
     train = {k: engine.train_meters[k].avg for k in ("loss", "acc1", "acc5")}
     val = engine.validation
-    print(f"r2plus1d finetune {model_type}: batch {R21D_FT_BATCH}, 16 "
+    print(f"{label} finetune {model_type}: batch {batch}, 16 "
           f"frames, compute dtype {engine.dtype}, model "
           f"{type(engine.model).__name__}, {len(steps)} steps, step ms "
           f"{[round(t, 1) for t in steps]}, wall {wall:.1f} s, peak memory "
           f"{peak:.2f} GiB, train loss {train['loss']:.4f} acc1 "
           f"{train['acc1']:.2f}, validation "
           f"{ {k: round(v, 4) for k, v in val.items()} }, final "
-          f"{R21D_FT_FINAL // R21D_FT_BATCH}-crop validation "
+          f"10-crop validation of {val_clips} clips "
           f"{ {k: round(v, 4) for k, v in final.items()} }, launches "
           f"{counts}, plain calls on cuda {plain}", flush=True)
     require(engine.model_type == model_type,
             f"finetune built {engine.model_type}, not {model_type}")
     require(all(math.isfinite(v) for v in train.values()),
-            f"r2plus1d finetune train metrics not finite: {train}")
-    require(len(steps) == 3, f"r2plus1d finetune ran {len(steps)} steps")
+            f"{label} finetune train metrics not finite: {train}")
+    require(len(steps) == 3, f"{label} finetune ran {len(steps)} steps")
     require(engine.dtype == torch.bfloat16,
-            f"r2plus1d finetune computes in {engine.dtype}, not bf16")
-    require(val["count"] == R21D_FT_BATCH and math.isfinite(val["loss"]),
-            f"r2plus1d finetune validation: {val}")
-    require(final["count"] == R21D_FT_BATCH and math.isfinite(final["loss"]),
-            f"r2plus1d final validation: {final}")
+            f"{label} finetune computes in {engine.dtype}, not bf16")
+    require(val["count"] == val_clips and math.isfinite(val["loss"]),
+            f"{label} finetune validation: {val}")
+    require(final["count"] == val_clips and math.isfinite(final["loss"]),
+            f"{label} final validation: {final}")
     require(counts["color_augment"] == len(steps),
             f"K3 launched {counts['color_augment']} times, not once a step")
     require(counts["max_pool3d_fwd"] == 0 and counts["max_pool3d_bwd"] == 0,
-            f"R(2+1)D has no max pool, yet K1/K2 launched: {counts}")
+            f"{label} has no max pool, yet K1/K2 launched: {counts}")
     require(not any(plain.values()),
             f"plain versions ran on CUDA tensors: {plain}")
+    if profile:
+        report_profile(prof, wall)
     return {"launches": counts, "steps_ms": steps, "peak_gib": peak}
+
+
+def check_floor_tail(dev, batch: int) -> None:
+    """K2 at SlowFast's res4 non-local pool, (1,2,2)/(1,2,2)/0 on a 7²
+    map: row and column 6 lie in no window, so their gradient is exactly
+    0 (and bit-equal to the plain version's everywhere)."""
+    import torch
+    from rspnet_tpu_torch.ops import max_pool3d as mp
+
+    name, shape4, k, s, p = P11_POOL_SITES["slowfast_pretrain"][3]
+    gen = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn((batch, *shape4), generator=gen, device=dev).to(
+        torch.bfloat16)
+    out = mp.max_pool3d_fwd(x, k, s, p)
+    g = torch.randn(out.shape, generator=gen, device=dev).to(torch.bfloat16)
+    dx = mp.max_pool3d_bwd(x, g, k, s, p)
+    tail = torch.cat([dx[:, :, 6].flatten(), dx[:, :, :, 6].flatten()])
+    same = torch.equal(dx, mp.max_pool3d_bwd_plain(x, g, k, s, p))
+    print(f"check K2 {name} floor tail [{batch},{','.join(map(str, shape4))}]"
+          f" bf16: out {list(out.shape)}, row and column 6 all zero "
+          f"{bool((tail == 0).all())}, bit-equal to plain {same}",
+          flush=True)
+    require(out.shape[2] == 3 and bool((tail == 0).all()) and same,
+            f"K2 at {name}: the uncovered tail is not 0 or differs")
 
 
 def profile_odd_convs(dev) -> None:
@@ -1397,6 +1500,15 @@ def main(argv=None) -> int:
                                          "bfloat16", sites=TSM_POOL_SITES)
     for leg, (_, b, frames, _) in P10_PRETRAIN.items():
         color_zoo[leg] = time_color(dev, batch=b, frames=frames, size=112)
+    # phase 11's sites: K1/K2 bf16 at the q batch (K1 also at the fused key
+    # batch), K2's zero tail at the 7² non-local pool; K3's clip on both
+    # pretrain legs is ResNet-18's, [64, 32, 112, 112, 3], timed above
+    for site, sites in P11_POOL_SITES.items():
+        check_pool_fwd(dev, 2 * P11_BATCH, sites=sites, dtypes=("bfloat16",))
+        pool_zoo[site] = time_pool(dev, P11_BATCH, "bfloat16", sites=sites)
+    check_floor_tail(dev, P11_BATCH)
+    for leg in P11_PRETRAIN:
+        color_zoo[leg] = color_zoo["resnet18"]
 
     with tempfile.TemporaryDirectory() as exp:
         trained = main_path(MAIN_BATCH, os.path.join(exp, "train"),  # 4
@@ -1435,17 +1547,32 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
         for model_type in ("multitask", "1stream"):
             gc.collect()
-            ft = r2plus1d_finetune_path(
-                os.path.join(exp, f"r2plus1d_ft_{model_type}"),
+            ft = finetune_leg(
+                "r2plus1d", os.path.join(exp, f"r2plus1d_ft_{model_type}"),
                 legs["r2plus1d"]["checkpoint"], model_type)
             paths[f"r2plus1d_finetune_{model_type}"] = ft["launches"]
             torch.cuda.empty_cache()
         if args.profile:
             profile_odd_convs(dev)
+        for leg, (fields, calls) in P11_PRETRAIN.items():              # 11
+            gc.collect()
+            legs[leg] = zoo_pretrain_path(
+                leg, os.path.join(exp, leg), args.profile,
+                config="config/pretrain/moco-train-base.jsonnet",
+                batch=P11_BATCH, pool_calls=calls, fields=fields)
+            paths[f"{leg}_pretrain"] = legs[leg]["launches"]
+            torch.cuda.empty_cache()
+        gc.collect()
+        paths["r3d18_finetune"] = finetune_leg(
+            "r3d18", os.path.join(exp, "r3d18_ft"), None, "multitask",
+            config=R3D18_FT_CONFIG, batch=R3D18_FT_BATCH,
+            val_clips=R3D18_FT_VAL, mixins=("add.r18k400",),
+            profile=args.profile)["launches"]
+        torch.cuda.empty_cache()
     launches, launches_ft = trained["launches"], finetuned["launches"]
 
     def path_keys(name, key):
-        """The kernel's launches on phases 7-9's paths and its times at
+        """The kernel's launches on phases 7-11's paths and its times at
         their sites (bf16; the visualization's in f32)."""
         out = {f"launches_{path}": counts[name]
                for path, counts in paths.items()}

@@ -14,7 +14,10 @@ mean and the crop mean sum in f32 and round once, as ``jnp.mean`` does.
 Linear probe (``only_train_fc``, classifier.py:87-103): every parameter
 outside the classifier head gets ``requires_grad=False``, so SGD applies
 neither gradient nor weight decay to it (JAX masks the gradients and the
-updates), and BN runs in eval mode.
+updates), and BN runs in eval mode. A head that ``FC_NAMES`` does not
+name as a whole first key (SlowFast's ``head_fc``) is frozen with the
+backbone, so such a step changes no parameter, as the JAX step does (F11,
+ROADMAP.md §3).
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import torch
 from torch import nn
 
 from ..framework.metrics import accuracy, masked_topk_correct
+from ..models.common import mean_dim as _mean
 
 # top-level module names of classifier heads (classifier.py:37-43)
 FC_NAMES = ("fc", "linear", "head", "new_fc")
@@ -33,12 +37,6 @@ def freeze_backbone(model: nn.Module) -> None:
     """``only_train_fc``: only the classifier head's parameters train."""
     for name, p in model.named_parameters():
         p.requires_grad_(name.split(".")[0] in FC_NAMES)
-
-
-def _mean(x: torch.Tensor, dim=None) -> torch.Tensor:
-    """``jnp.mean``: summed in at least f32, rounded once to x's dtype."""
-    acc = x.to(torch.promote_types(x.dtype, torch.float32))
-    return (acc.mean() if dim is None else acc.mean(dim)).to(x.dtype)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
@@ -89,8 +87,9 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     logits = classify(model, clips, n_crop, **model_kw)
     loss = _mean(cross_entropy(logits, labels))
     optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    optimizer.step()
+    if loss.requires_grad:
+        loss.backward()
+        optimizer.step()
     logits = logits.detach()
     acc1, acc5 = accuracy(logits, labels, topk=(1, 5))
     return {"loss": loss.detach(), "acc1": acc1, "acc5": acc5}

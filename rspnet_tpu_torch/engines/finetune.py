@@ -131,6 +131,15 @@ class FinetuneEngine:
         self.generator.manual_seed(seed + 1)
         # the linear probe: the train step freezes the backbone
         self.only_train_fc = cfg.get_bool("only_train_fc", False)
+        if self.only_train_fc and not any(
+                name.split(".")[0] in classifier.FC_NAMES
+                for name, _ in self.model.named_parameters()):
+            # F11 (ROADMAP.md §3): as in the JAX package, whose mask names
+            # heads by the whole first key, nothing trains
+            logger.warning(
+                "only_train_fc: no classifier head named %s in %s (%s); "
+                "nothing trains, as in the JAX package (F11)",
+                "/".join(classifier.FC_NAMES), self.arch, self.model_type)
         # precise-BN batches before the first epoch of a fresh run
         self.bn_recalibrate = cfg.get_int("bn_recalibrate", 0)
 

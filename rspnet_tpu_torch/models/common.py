@@ -57,7 +57,7 @@ def conv3d(conv: nn.Conv3d, x: torch.Tensor,
     returns NCDHW, which would put a copy before the next pool)."""
     dt = dtype or x.dtype
     y = F.conv3d(x.to(dt), conv.weight.to(dt), None, conv.stride,
-                 conv.padding)
+                 conv.padding, groups=conv.groups)
     if x.is_contiguous(memory_format=torch.channels_last_3d):
         y = y.contiguous(memory_format=torch.channels_last_3d)
     if conv.bias is not None:
@@ -117,21 +117,100 @@ class ConvBN(nn.Module):
         return conv_bn(self.conv3d, self.bn, x, self.dtype)
 
 
+class SubBatchNorm(nn.Module):
+    """Split-batch normalization (rspnet_tpu/models/common.py:SubBatchNorm,
+    :109), NCDHW.
+
+    In training the statistics are taken over each of ``num_splits``
+    interleaved subsets of the batch (sample i in split ``i % num_splits``,
+    the reshape to ``[n // k, k, ...]``), with the biased variance, and one
+    affine pair is shared. ``running_mean`` and ``running_var`` are
+    ``[k, C]``; ``running_var`` is updated with each split's unbiased
+    variance. In eval mode the statistics are aggregated on the fly: the
+    mean of the split means, and the mean of the split variances plus the
+    variance between the split means. A batch that ``k`` does not divide
+    raises. The statistics are taken in (at least) f32, as the port's
+    ``BatchNorm`` does; the JAX module casts to f32 even under x64, so the
+    two agree in f32 and bf16. The output is cast to ``dtype`` (or stays in
+    the input's).
+    """
+
+    def __init__(self, num_features: int, num_splits: int,
+                 flax_momentum: float = 0.9, eps: float = 1e-5,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.num_splits, self.momentum, self.eps = num_splits, flax_momentum, eps
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean",
+                             torch.zeros(num_splits, num_features))
+        self.register_buffer("running_var",
+                             torch.ones(num_splits, num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k, n, c = self.num_splits, x.shape[0], x.shape[1]
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        if self.training:
+            if n % k:
+                raise ValueError(f"SubBatchNorm: batch {n} not divisible "
+                                 f"by num_splits {k}")
+            xs = xf.reshape(n // k, k, *x.shape[1:])
+            dims = (0, 3, 4, 5)
+            m = xs.mean(dims)                                   # [k, C]
+            d = xs - m.view(1, k, c, 1, 1, 1)
+            v = (d * d).mean(dims)
+            n_el = xs.numel() // (k * c)
+            unbias = n_el / max(n_el - 1, 1)
+            with torch.no_grad():
+                rm, rv = self.running_mean, self.running_var
+                rm.copy_(self.momentum * rm + (1 - self.momentum) * m)
+                rv.copy_(self.momentum * rv
+                         + (1 - self.momentum) * v * unbias)
+            y = (d * torch.rsqrt(v + self.eps).view(1, k, c, 1, 1, 1)
+                 ).reshape(x.shape)
+        else:
+            rm = self.running_mean.to(xf.dtype)
+            m = rm.mean(0)
+            v = (self.running_var.to(xf.dtype).mean(0)
+                 + ((rm - m) ** 2).mean(0))
+            y = (xf - m.view(1, c, 1, 1, 1)) * torch.rsqrt(
+                v + self.eps).view(1, c, 1, 1, 1)
+        y = (y * self.weight.to(y.dtype).view(1, c, 1, 1, 1)
+             + self.bias.to(y.dtype).view(1, c, 1, 1, 1))
+        return y.to(self.dtype or x.dtype)
+
+
+def make_norm(num_features: int, bn_splits: int = 1,
+              dtype: Optional[torch.dtype] = None) -> nn.Module:
+    """``BatchNorm``, or ``SubBatchNorm`` when ``bn_splits > 1`` (the JAX
+    ``ConvBN``'s choice, rspnet_tpu/models/common.py:212)."""
+    if bn_splits > 1:
+        return SubBatchNorm(num_features, bn_splits, dtype=dtype)
+    return BatchNorm(num_features, dtype=dtype)
+
+
 class ConvNorm(nn.Module):
     """The JAX package's ``ConvBN`` under its own child names (``conv``,
     ``bn``), for backbones and heads whose module names follow the JAX
-    tree: a conv (with a bias if ``use_bias``), an optional BN and a ReLU
-    unless ``activation`` is False (rspnet_tpu/models/common.py:176)."""
+    tree: a conv (with a bias if ``use_bias``), an optional BN
+    (``SubBatchNorm`` when ``bn_splits > 1``; its scale starts at zero if
+    ``zero_bn``) and a ReLU unless ``activation`` is False
+    (rspnet_tpu/models/common.py:176)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: IntOr3, stride: IntOr3 = 1,
                  padding: IntOr3 = 0, use_bias: bool = False,
                  use_bn: bool = True, activation: bool = True,
+                 bn_splits: int = 1, zero_bn: bool = False,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.conv = make_conv(in_channels, out_channels, kernel_size, stride,
                               padding, use_bias)
-        self.bn = BatchNorm(out_channels, dtype=dtype) if use_bn else None
+        self.bn = (make_norm(out_channels, bn_splits, dtype) if use_bn
+                   else None)
+        if zero_bn:
+            nn.init.zeros_(self.bn.weight)
         self.activation = activation
         self.dtype = dtype
 
@@ -178,6 +257,22 @@ class MaxPool3d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return max_pool3d(x, *self.geom)
+
+
+def softmax_last(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softmax`` over the last axis in x's dtype: the shifted
+    exponent, its sum (in at least f32, rounded once to x's dtype, as XLA
+    sums) and the quotient, each rounded to the dtype."""
+    e = torch.exp(x - x.detach().amax(dim=-1, keepdim=True))
+    acc = torch.promote_types(x.dtype, torch.float32)
+    return e / e.to(acc).sum(dim=-1, keepdim=True).to(x.dtype)
+
+
+def mean_dim(x: torch.Tensor, dim=None) -> torch.Tensor:
+    """``jnp.mean`` over ``dim`` (all of x if None): summed and divided in
+    (at least) f32, rounded once to x's dtype."""
+    return x.to(torch.promote_types(x.dtype, torch.float32)).mean(dim).to(
+        x.dtype)
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:

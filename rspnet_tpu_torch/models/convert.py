@@ -1,6 +1,7 @@
 """JAX variables <-> the port's ``state_dict`` (port of the S3D-G, C3D,
-ResNet-3D and R(2+1)D parts of rspnet_tpu/models/torch_bridge.py, both
-ways, and of the TSM and head trees of the JAX modules).
+ResNet-3D, R(2+1)D, MFNet-3D and torchvision r3d_18 parts of
+rspnet_tpu/models/torch_bridge.py, both ways, and of the TSM, SlowFast and
+head trees of the JAX modules).
 
 The JAX side is a ``{"params", "batch_stats"}`` pair of trees whose leaves
 are numpy arrays (or CPU tensors, as a checkpoint holds them). The model is
@@ -17,14 +18,16 @@ a wrapper's kind is: the heads' ``fc_type`` (``fc1.hidden``: mlp;
 ``fc1.conv2``: conv; ``fc1.conv1`` alone: convbn; else linear, which
 speednet's heads are too), and TSM's blocks (``layer{s}_{i}``, a
 ``conv3`` for the bottleneck base, ``nl{s}_{i}`` non-local blocks), whose
-port names are the JAX tree's.
+port names are the JAX tree's, and SlowFast's whole tree (its spec comes
+from a YAML or a variant name), whose port names are the JAX paths too.
 
 Tensor conventions:
 - flax conv kernel [kt, kh, kw, I, O] <-> torch Conv3d weight
   [O, I, kt, kh, kw]
 - flax dense kernel [I, O] <-> torch Linear weight [O, I]
 - flax BN {scale, bias} + {mean, var} <-> {weight, bias, running_mean,
-  running_var}; BN's ``num_batches_tracked`` has no JAX counterpart
+  running_var}; BN's ``num_batches_tracked`` has no JAX counterpart;
+  SubBatchNorm's per-split statistics are ``[k, C]`` on both sides
 
 Some tensors of a backbone exist only in some builds of it: a ResNet
 block's ``downsample`` (shortcut B, not A) and a bare backbone's own
@@ -40,7 +43,9 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from .mfnet import K_SEC as _MFNET_K_SEC
 from .resnet3d import DEPTHS, Bottleneck
+from .slowfast import SPECS as _SLOWFAST_SPECS
 
 __all__ = ["variables_to_state_dict", "state_dict_to_variables",
            "load_converted", "load_variables"]
@@ -209,7 +214,70 @@ def _tsm_mapping(names) -> list:
     return m + _dense("new_fc", "new_fc")
 
 
+def _mfnet_mapping() -> list:
+    """The reference MFNet-3D names (torch_bridge.py:_mfnet_mapping)."""
+    m = [("conv1.conv.weight", ("params", "stem_conv/kernel", _conv_w))]
+    m += _bn("conv1.bn", "stem_bn")
+    for s, n_units in enumerate(_MFNET_K_SEC, start=2):
+        for i in range(1, n_units + 1):
+            t, f = f"conv{s}.B{i:02d}", f"conv{s}_B{i:02d}"
+            children = ["conv_i1", "conv_i2", "conv_m1", "conv_m2"]
+            if i == 1:
+                children.append("conv_w1")      # the first unit's shortcut
+            for c in children:
+                m.append((f"{t}.{c}.conv.weight",
+                          ("params", f"{f}/{c}/conv/kernel", _conv_w)))
+                m += _bn(f"{t}.{c}.bn", f"{f}/{c}/bn")
+    return m + _bn("tail.bn", "tail_bn") + _dense("fc", "fc")
+
+
+def _r3d18_mapping() -> list:
+    """torchvision's r3d_18 names (torch_bridge.py:
+    _torchvision_r3d18_mapping)."""
+    m = _conv_bn("stem.0", "stem.1", "stem")
+    for s in range(4):
+        for i in range(2):
+            t, f = f"layer{s + 1}.{i}", f"layer{s + 1}_{i}"
+            for c in ("conv1", "conv2"):
+                m += _conv_bn(f"{t}.{c}.0", f"{t}.{c}.1", f"{f}/{c}")
+            if s > 0 and i == 0:
+                m += _conv_bn(f"{t}.downsample.0", f"{t}.downsample.1",
+                              f"{f}/downsample")
+    return m + _dense("fc", "fc")
+
+
+def _slowfast_mapping(names) -> list:
+    """SlowFast from the modules its source holds (JAX paths or torch
+    keys; the port's module path is the JAX path): a module named ``bn``
+    is a BN (or SubBatchNorm), ``head_fc`` the classifier, any other a
+    conv, with a bias where the source has one (the non-local block's
+    ``theta`` / ``phi`` / ``g`` / ``out``)."""
+    leaves: Dict[str, set] = {}
+    for n in names:
+        mod, _, leaf = n.rpartition(".")
+        leaves.setdefault(mod, set()).add(leaf)
+    m = []
+    for mod in sorted(leaves):
+        f = mod.replace(".", "/")
+        last = mod.rpartition(".")[2]
+        if last == "bn":
+            m += _bn(mod, f)
+        elif last == "head_fc":
+            m += _dense(mod, f)
+        else:
+            m.append((f"{mod}.weight", ("params", f"{f}/kernel", _conv_w)))
+            if "bias" in leaves[mod]:
+                m.append((f"{mod}.bias", ("params", f"{f}/bias", None)))
+    return m
+
+
+def _is_slowfast(arch: str) -> bool:
+    return arch == "slowfast" or arch in _SLOWFAST_SPECS
+
+
 KEY_MAPPERS = {
+    "mfnet": _mfnet_mapping,
+    "torchvision-resnet18": _r3d18_mapping,
     "s3dg": lambda: _s3dg_mapping(True) + _dense("fc", "fc"),
     "s3d": lambda: _s3dg_mapping(False) + _dense("fc", "fc"),
     "c3d": _c3d_mapping,
@@ -259,10 +327,12 @@ def _model_mapping(arch: str, names):
     backbone, or (an ``encoder.`` entry) a ``MultiTaskWrapper`` with the
     classifier (an ``fc.`` entry) or the pretraining heads."""
     wrapper = any(n.startswith("encoder.") for n in names)
+    backbone = ([n[len("encoder."):] for n in names
+                 if n.startswith("encoder.")] if wrapper else list(names))
     if arch == "tsm":            # its blocks are read from the source
-        m = _tsm_mapping([n[len("encoder."):] for n in names
-                          if n.startswith("encoder.")] if wrapper
-                         else list(names))
+        m = _tsm_mapping(backbone)
+    elif _is_slowfast(arch):     # so is its whole tree
+        m = _slowfast_mapping(backbone)
     elif arch in KEY_MAPPERS:
         m = KEY_MAPPERS[arch]()
     else:

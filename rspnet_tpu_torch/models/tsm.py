@@ -24,7 +24,8 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from .common import BatchNorm, ConvNorm, conv3d, dense, make_conv, max_pool3d
+from .common import (BatchNorm, ConvNorm, conv3d, dense, make_conv,
+                     max_pool3d, softmax_last)
 
 
 def temporal_shift(x: torch.Tensor, fold_div: int = 8) -> torch.Tensor:
@@ -59,15 +60,6 @@ def temporal_shift_grouped(x: torch.Tensor, fold_div: int = 3,
         out[:, a:b, 1:] = x[:, a:b, :-1]
         out[:, b:e] = x[:, b:e]
     return out
-
-
-def softmax_last(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softmax`` over the last axis in x's dtype: the shifted
-    exponent, its sum (in at least f32, rounded once to x's dtype, as XLA
-    sums) and the quotient, each rounded to the dtype."""
-    e = torch.exp(x - x.detach().amax(dim=-1, keepdim=True))
-    acc = torch.promote_types(x.dtype, torch.float32)
-    return e / e.to(acc).sum(dim=-1, keepdim=True).to(x.dtype)
 
 
 class NonLocalBlock(nn.Module):

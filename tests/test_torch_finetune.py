@@ -325,7 +325,8 @@ def ft_engine_args(exp, extra=""):
     return bootstrap(finetune_argv(exp, extra))
 
 
-@pytest.mark.parametrize("extra", [", model+: {arch: 'slowfast'}",
+@pytest.mark.parametrize("extra", [", model+: {arch: 'slowfast', "
+                                   "pretrain: true}",
                                    ", cache_device: true",
                                    ", model+: {pretrain: true}"])
 def test_unported_options_raise(tmp_path, monkeypatch, extra):

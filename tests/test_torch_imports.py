@@ -7,7 +7,12 @@ OpenCV is not on the card machine either: no port file imports ``cv2``
 but inside the two functions that decode or resize frames on the host
 (``data/video_reader.py``; ``data/pipeline.py:_load_one``, host geometry
 only), never at module level. The CAM visualization has its own image
-helper (``utils/image.py``)."""
+helper (``utils/image.py``).
+
+PyYAML is not on the card machine: no port file imports ``yaml``; the
+SlowFast path reads the pyslowfast YAMLs with ``config/yaml_subset.py``,
+and building and running a SlowFast from a YAML loads neither ``yaml``
+nor ``jax`` (checked in a fresh interpreter)."""
 import ast
 import pathlib
 
@@ -90,3 +95,30 @@ def test_cv2_checker_catches_a_module_level_import(tmp_path):
     probe = tmp_path / "probe.py"
     probe.write_text("import cv2\ndef f():\n    from cv2 import resize\n")
     assert _cv2_imports(probe) == [(None, 1), ("f", 3)]
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_yaml_imports(path):
+    assert "yaml" not in set(_imported_roots(path)), path.relative_to(ROOT)
+
+
+def test_slowfast_path_imports_neither_yaml_nor_jax():
+    import subprocess
+    import sys
+    code = (
+        "import sys, torch\n"
+        "from rspnet_tpu_torch.models import get_model_class\n"
+        "from rspnet_tpu_torch.moco import MultiTaskWrapper\n"
+        "torch.set_num_threads(1)\n"
+        "f = get_model_class('slowfast', cfg_file='config/slowfast-configs/"
+        "Kinetics/SLOWFAST_NLN_4x16_R50.yaml')\n"
+        "m = MultiTaskWrapper(f(), 8)\n"
+        "with torch.no_grad():\n"
+        "    a, b = m(torch.randn(2, 16, 32, 32, 3))\n"
+        "assert a.shape == (2, 8)\n"
+        "print(sorted({n.split('.')[0] for n in sys.modules}"
+        " & {'yaml', 'jax', 'jaxlib', 'flax', 'rspnet_tpu'}))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"

@@ -57,11 +57,13 @@ def _assert_model(net, params, stats, arch, what):
 
 
 def one_stream_steps(arch, n_steps=2, dropout_masks=None, seed=0,
-                     lr=0.05):
+                     lr=0.05, modules=None):
     """``n_steps`` SGD steps (``lr``, momentum, weight decay) of a
     ``1stream`` model in both packages from one merged state (module
     docstring). ``dropout_masks(jm)`` gives a function (state, clips, key)
-    -> the JAX step's dropout mask, for the port."""
+    -> the JAX step's dropout mask, for the port. ``modules``, when
+    given, is (JAX model, port model, JAX encoder without its classifier)
+    in place of the ones ``arch``'s config builds."""
     from rspnet_tpu.config import ConfigTree as JaxConfigTree
     from rspnet_tpu.engines.finetune import \
         build_classifier_model as jax_build
@@ -72,14 +74,19 @@ def one_stream_steps(arch, n_steps=2, dropout_masks=None, seed=0,
     rng = np.random.RandomState(seed)
     d = {"model": {"arch": arch}, "model_type": "1stream",
          "dataset": {"num_classes": NC}}
-    jm, model_type = jax_build(JaxConfigTree.from_dict(d), axis_name=None)
-    assert model_type == "1stream"
-    net, model_type = build_classifier_model(ConfigTree.from_dict(d))
-    assert model_type == "1stream"
+    if modules is None:
+        jm, model_type = jax_build(JaxConfigTree.from_dict(d),
+                                   axis_name=None)
+        assert model_type == "1stream"
+        net, model_type = build_classifier_model(ConfigTree.from_dict(d))
+        assert model_type == "1stream"
+        jenc = jax_model_class(arch)(with_classifier=False)
+    else:
+        jm, net, jenc = modules
     v = _random_variables(jm, np.random.default_rng(seed), np.float64)
     # a pretraining encoder: the backbone without its classifier
-    enc = _random_variables(jax_model_class(arch)(with_classifier=False),
-                            np.random.default_rng(seed + 1), np.float64)
+    enc = _random_variables(jenc, np.random.default_rng(seed + 1),
+                            np.float64)
     params, stats = jax_merge(v["params"], v["batch_stats"], enc["params"],
                               enc["batch_stats"], "1stream")
     head = [k for k in v["params"] if k not in enc["params"]]

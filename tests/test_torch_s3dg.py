@@ -79,4 +79,4 @@ def test_s3dg_forward_and_gradients_match_jax():
 
 def test_convert_rejects_unported_arch():
     with pytest.raises(NotImplementedError):
-        variables_to_state_dict({"params": {}}, arch="mfnet")
+        variables_to_state_dict({"params": {}}, arch="slowfast_r18")

@@ -39,9 +39,9 @@ def _np_tree(tree):
 
 
 def _port_model(params, stats, arch="s3dg", model_cfg=None,
-                fc_type="linear"):
-    net = MultiTaskWrapper(port_model_class(arch, **(model_cfg or {}))(),
-                           num_classes=DIM, fc_type=fc_type)
+                fc_type="linear", factory=None):
+    factory = factory or port_model_class(arch, **(model_cfg or {}))
+    net = MultiTaskWrapper(factory(), num_classes=DIM, fc_type=fc_type)
     net = net.double().to(memory_format=torch.channels_last_3d)
     load_converted(net, variables_to_state_dict(
         {"params": _np_tree(params), "batch_stats": _np_tree(stats)}, arch))
@@ -62,13 +62,17 @@ def test_train_step_matches_jax():
         _run()
 
 
-def _run(arch="s3dg", model_cfg=None, fc_type="linear"):
-    """One step of ``arch`` (built from ``model_cfg``, with ``fc_type``
-    heads) in both packages, compared (also run on C3D by
-    tests/test_torch_zoo_step.py, on TSM by tests/test_torch_tsm.py and
-    with the speednet heads by tests/test_torch_heads.py)."""
+def _run(arch="s3dg", model_cfg=None, fc_type="linear", factories=None):
+    """One step of ``arch`` (built from ``model_cfg``, or by ``factories``,
+    a (JAX, port) pair of backbone constructors, with ``fc_type`` heads)
+    in both packages, compared (also run on C3D by
+    tests/test_torch_zoo_step.py, on TSM by tests/test_torch_tsm.py, with
+    the speednet heads by tests/test_torch_heads.py, on MFNet and on
+    SlowFast by tests/test_torch_{mfnet,slowfast}_step.py)."""
     model_cfg = model_cfg or {}
-    jmodel = JaxWrapper(encoder_factory=get_model_class(arch, **model_cfg),
+    jax_factory, port_factory = factories or (
+        get_model_class(arch, **model_cfg), None)
+    jmodel = JaxWrapper(encoder_factory=jax_factory,
                         num_classes=DIM, fc_type=fc_type, axis_name=None)
     rng = np.random.RandomState(0)
     variables = jax.jit(lambda k, v: jmodel.init(k, v, train=False))(
@@ -106,8 +110,10 @@ def _run(arch="s3dg", model_cfg=None, fc_type="linear"):
     speed_index = int(jax.random.randint(key_speed, (), 0, 1))
 
     # the port, from the same state
-    model_q = _port_model(params_q, stats, arch, model_cfg, fc_type)
-    model_k = _port_model(params_k, stats, arch, model_cfg, fc_type)
+    model_q = _port_model(params_q, stats, arch, model_cfg, fc_type,
+                          port_factory)
+    model_k = _port_model(params_k, stats, arch, model_cfg, fc_type,
+                          port_factory)
     for p in model_k.parameters():
         p.requires_grad_(False)
     opt = build_optimizer(ConfigTree.from_dict(

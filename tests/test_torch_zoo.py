@@ -15,8 +15,10 @@ JAX package's, f64 on the CPU.
   the port's module -> state_dict -> variables gives back the same tree,
   leaf for leaf (the JAX modules' own structure).
 - The registry: every ported arch builds, with the JAX package's
-  ``feature_dim`` (TSM with its default resnet50 base); another raises
-  naming ROADMAP.md.
+  ``feature_dim`` (TSM with its default resnet50 base); the archs are the
+  JAX package's ``available_archs()``; an unknown one raises
+  ``ValueError`` and an unread model key ``NotImplementedError`` naming
+  ROADMAP.md.
 
 The MoCo step on C3D is in tests/test_torch_zoo_step.py, the bf16 blocks
 in tests/test_torch_zoo_bf16.py (each file within its time budget), the
@@ -196,7 +198,8 @@ def test_conversion_round_trip(name, layout):
 @pytest.mark.parametrize("arch", ["c3d", "resnet10", "resnet18", "resnet34",
                                   "resnet50", "resnet101", "resnet152",
                                   "resnet200", "s3dg", "s3d", "r2plus1d-vcop",
-                                  "r2plus1d-18", "tsm"])
+                                  "r2plus1d-18", "tsm", "mfnet",
+                                  "torchvision-resnet18", "slowfast"])
 def test_registry_builds_every_ported_arch(arch):
     jm = jax_model_class(arch)(with_classifier=False)
     net = get_model_class(arch)()
@@ -207,5 +210,13 @@ def test_registry_builds_every_ported_arch(arch):
 
 
 def test_registry_rejects_unported_arch():
+    # every arch of the JAX package is ported: an unknown one raises
+    # ValueError, as there, and a model key an arch does not read raises
+    # NotImplementedError naming ROADMAP.md
+    from rspnet_tpu.models import available_archs as jax_archs
+    from rspnet_tpu_torch.models import available_archs
+    assert available_archs() == sorted(jax_archs())
+    with pytest.raises(ValueError, match="Unknown arch"):
+        get_model_class("slowfast_r18")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model_class("slowfast")
+        get_model_class("mfnet", variant="SLOWFAST_4x16_R50")
