@@ -109,6 +109,21 @@ Phases, each printing its own lines:
      K2, MFNet's stem pool [B, 16, 56, 56, 16], C2D / I3D's (2,1,1)
      temporal pool [B, 8, 28, 28, 256]) at batch 64 (K1 also at 128), and
      time them. With ``--profile`` the three legs are traced.
+ 12. the pretrain engine's options, bf16 at the published widths: 3 steps
+     of ``rspnet_tpu_torch.pretrain.main`` on config/pretrain/s3dg.jsonnet
+     (batch 64, 224², K 16384) with ``moco+: {aug_plus: true, diff_speed:
+     [4, 2], packed_frames: true}`` and the Adam preset of
+     config/lib/optim.libsonnet: 64 loaded frames, the exact union of 48
+     shipped, a speed drawn each step (4, 2, 2 from seed 0: T_real 16,
+     then 32), K3 with gray after the jitter, mean 0 and std 1 before the
+     gaussian blur of half the clips; K1 26 and K2 13 a step, all bf16, K3
+     once per q and k clip; then ``--validate`` from its checkpoint (both
+     speeds drawn again, K2 not launched). Before it, phase 2 holds K3 to
+     its plain version in this mode on [64, 48, 224, 224, 3] (about 20%
+     rows unjittered) and phases 2/3 hold K1/K2 bit-equal at the speed-2
+     branch's 13 sites (32 frames; batch 64, K1 also 128) and time them,
+     time K3 in this mode, and time the blur alone, checked against the
+     CPU. With ``--profile`` the leg is traced.
 Then one JSON line with the kernels, the card line again, and the result
 line ``{"ok": true, "device": {...}}`` last. Any failure exits non-zero
 before the result line. Imports nothing of JAX or of rspnet_tpu.
@@ -276,6 +291,17 @@ R3D18_FT_CONFIG = "config/finetune/ucf101_resnet18.jsonnet"
 # batch 32 (64 x its bs_factor 0.5), 3 train steps; 8 validation clips
 # (one batch), 8 clips x 10 crops in the final validation
 R3D18_FT_BATCH, R3D18_FT_VAL = 32, 8
+# phase 12: the pretrain engine's options on config/pretrain/s3dg.jsonnet
+# (aug_plus, exact multi-speed with packed frames, config/lib/optim
+# .libsonnet's Adam preset); 64 loaded frames, 48 of them packed; the
+# speed-2 branch trains on 32-frame clips, so each S3D-G pool site sees
+# twice the main path's frames
+P12_FIELDS = ('moco+: {aug_plus: true, diff_speed: [4, 2], packed_frames: '
+              'true}, optimizer: {type: "adam", lr: 1e-3, eps: 1e-8, '
+              'schedule: "none"}')
+P12_SPEEDS, P12_LOADED, P12_PACKED = (4, 2), 64, 48
+S2_POOL_SITES = [(name, (2 * t, h, w, c), k, s, p)
+                 for name, (t, h, w, c), k, s, p in POOL_SITES]
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 
 
@@ -551,6 +577,49 @@ def check_color_repeat(dev, batch: int, clip) -> None:
     torch.cuda.empty_cache()
 
 
+def _aug_plus_args(rng, batch: int):
+    """The engine's aug_plus draw (jitter (0.4, 0.4, 0.4, 0.1) with
+    probability 0.8, gray 0.2, flip 0.5): order, factors (unjittered rows
+    (1, 1, 1, 0)), gray, flip."""
+    from rspnet_tpu_torch.ops.augment import sample_train_params
+    p = sample_train_params(rng, batch, [(1, 1)], crop_area=(1.0, 1.0),
+                            h_flip=0.5, gray_p=0.2,
+                            jitter=(0.4, 0.4, 0.4, 0.1), jitter_p=0.8,
+                            blur_p=0.5)
+    return p.order, p.jitter, p.gray, p.flip
+
+
+def check_color_aug_plus(dev, batch: int, clip) -> float:
+    """K3 against its plain version in the aug_plus mode of phase 12: gray
+    after the jitter, about 20% unjittered rows, mean 0 and std 1 (the
+    blur and the normalize follow outside K3), f32 input as the device
+    geometry gives it. Returns the largest abs error."""
+    import numpy as np
+    import torch
+    from rspnet_tpu_torch.ops import color_augment as ca
+
+    order, factors, gray, flip = _aug_plus_args(np.random.default_rng(12),
+                                                batch)
+    identity = int((factors == (1.0, 1.0, 1.0, 0.0)).all(axis=1).sum())
+    gen = torch.Generator(device=dev).manual_seed(12)
+    x = torch.rand((batch, *clip, 3), generator=gen, device=dev)
+    kw = dict(mean=(0.0, 0.0, 0.0), std=(1.0, 1.0, 1.0),
+              gray_before_jitter=False)
+    out = ca.color_augment(x, order, factors, gray, flip, **kw)
+    ref = ca.color_augment_plain(x, order, factors, gray, flip, **kw)
+    err = float((out - ref).abs().max())
+    print(f"check K3 aug_plus [{batch},{','.join(map(str, clip))},3] f32 "
+          f"gray after jitter, mean 0 std 1, {identity} of {batch} rows "
+          f"unjittered, {int(gray.sum())} gray, {int(flip.sum())} flipped: "
+          f"max_abs_err={err:.3g} (limit {K3_TOL}); "
+          f"{color_plan_line(tuple(x.shape), False)}", flush=True)
+    require(err <= K3_TOL, f"K3 aug_plus error {err} > {K3_TOL}")
+    require(0 < identity < batch, f"K3 aug_plus: {identity} unjittered rows")
+    del x, out, ref
+    torch.cuda.empty_cache()
+    return err
+
+
 # ---------------------------------------------------------------------------
 # phase 3: timing at the main path's shapes
 # ---------------------------------------------------------------------------
@@ -695,10 +764,12 @@ def ptxas_lines(log: str, entry: str):
     return out
 
 
-def time_color(dev, batch: int, frames: int, size: int) -> dict:
+def time_color(dev, batch: int, frames: int, size: int,
+               aug_plus: bool = False) -> dict:
     """K3's resident instance, its generic instance (the
     color_augment_generic build) and the plain version at the main path's
-    shapes, f32 and u8 input, beside the bound."""
+    shapes, f32 and u8 input, beside the bound; ``aug_plus``: in phase
+    12's mode (``check_color_aug_plus``)."""
     import numpy as np
     import torch
     from rspnet_tpu_torch.ops import _build
@@ -709,14 +780,19 @@ def time_color(dev, batch: int, frames: int, size: int) -> dict:
         print(f"ptxas K3 resident {line}", flush=True)
 
     rng = np.random.default_rng(3)
-    order = np.stack([rng.permutation(4) for _ in range(batch)]).astype(
-        np.int32)
-    factors = _color_args(rng, batch)
-    gray = rng.random(batch) < 0.2
+    if aug_plus:
+        order, factors, gray, _ = _aug_plus_args(rng, batch)
+        kw = dict(mean=(0.0, 0.0, 0.0), std=(1.0, 1.0, 1.0),
+                  gray_before_jitter=False)
+    else:
+        order = np.stack([rng.permutation(4) for _ in range(batch)]).astype(
+            np.int32)
+        factors = _color_args(rng, batch)
+        gray = rng.random(batch) < 0.2
+        kw = dict(mean=(0.485, 0.456, 0.406), std=(0.229, 0.224, 0.225),
+                  gray_before_jitter=True)
     flip = np.zeros(batch, bool)
     x = torch.rand((batch, frames, size, size, 3), device=dev)
-    kw = dict(mean=(0.485, 0.456, 0.406), std=(0.229, 0.224, 0.225),
-              gray_before_jitter=True)
     res = {}
     for name, xin in (("f32", x), ("u8", (x * 255).to(torch.uint8))):
         def run(build):
@@ -731,7 +807,8 @@ def time_color(dev, batch: int, frames: int, size: int) -> dict:
         # round trip ~45, the blends ~8 each, luma 5, the normalize 6)
         ops = x.numel() / 3 * (45 + 3 * 8 + 5 + 6)
         b, by = bound(xin.numel() * xin.element_size() + x.numel() * 4, ops)
-        print(f"time K3 [{batch},{frames},{size},{size},3] {name} in: "
+        print(f"time K3 [{batch},{frames},{size},{size},3] {name} in"
+              f"{' aug_plus' if aug_plus else ''}: "
               f"{t:.4f} ms (again {t2:.4f}, generic instance {tg:.4f}, "
               f"bound {b:.4f} by {by}, plain {tp:.2f}); "
               f"{color_plan_line(tuple(xin.shape), name == 'u8')}",
@@ -744,6 +821,30 @@ def time_color(dev, batch: int, frames: int, size: int) -> dict:
     f = res["f32"]
     return {"ms": f["ms"], "plain_ms": f["plain_ms"],
             "bound_ms": f["bound_ms"], "bound_by": f["bound_by"]}
+
+
+def time_blur(dev, clips: int, frames: int, size: int) -> dict:
+    """The aug_plus gaussian blur (ops/color.py:gaussian_blur, a depthwise
+    3x3 ``F.conv2d``, not a TPU kernel) alone on ``clips`` f32 clips, half
+    of phase 12's batch, beside its bound; one clip held to the same
+    function on the CPU (1e-6)."""
+    import torch
+    from rspnet_tpu_torch.ops import color
+
+    x = torch.rand((clips, frames, size, size, 3), device=dev)
+    out = color.gaussian_blur(x[:1])
+    err = float((out.cpu() - color.gaussian_blur(x[:1].cpu())).abs().max())
+    t = time_ms(lambda: color.gaussian_blur(x), 10, 2)
+    # each input read once, each output written once; 9 multiply-adds a
+    # value
+    b, by = bound(2 * x.numel() * 4, 18 * x.numel())
+    print(f"time blur [{clips},{frames},{size},{size},3] f32: {t:.4f} ms "
+          f"(bound {b:.4f} by {by}); one clip against the CPU "
+          f"max_abs_err={err:.3g} (limit 1e-6)", flush=True)
+    require(err <= 1e-6, f"blur on the card differs from the CPU: {err}")
+    del x, out
+    torch.cuda.empty_cache()
+    return {"ms": t, "bound_ms": b, "bound_by": by, "max_abs_err": err}
 
 
 # ---------------------------------------------------------------------------
@@ -1369,6 +1470,142 @@ _KERNEL_GROUPS = [
 ]
 
 
+# ---------------------------------------------------------------------------
+# phase 12: aug_plus, exact multi-speed with packed frames, Adam
+# ---------------------------------------------------------------------------
+
+def _record_t_real():
+    """Wrap the train and eval steps' speed gather to record each call's
+    T_real; returns (the list, a function that restores the gather)."""
+    from rspnet_tpu_torch.moco import step
+    seen, gather = [], step.diff_speed_gather
+
+    def recording(*a, **kw):
+        out = gather(*a, **kw)
+        seen.append(int(out[0].shape[1]))
+        return out
+
+    step.diff_speed_gather = recording
+    return seen, lambda: setattr(step, "diff_speed_gather", gather)
+
+
+def aug_plus_path(exp: str, profile: bool = False) -> dict:
+    """Phase 12: 3 bf16 train steps of the S3D-G pretrain with aug_plus,
+    diff_speed [4, 2], packed frames and Adam; both speeds drawn, each
+    step at T_real = 64 // speed; K1 26, K2 13 a step, all bf16; K3 once
+    per q and k clip."""
+    import torch
+    from rspnet_tpu_torch import pretrain
+
+    plan = color_plan_line((MAIN_BATCH, P12_PACKED, 224, 224, 3), False)
+    argv = _main_argv(exp, fields=P12_FIELDS)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    t_real, restore = _record_t_real()
+    t0 = time.perf_counter()
+    try:
+        if profile:
+            from torch.profiler import ProfilerActivity
+            acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts,
+                                        record_shapes=True) as prof:
+                engine = pretrain.main(argv)
+                torch.cuda.synchronize()
+        else:
+            engine = pretrain.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    wall = time.perf_counter() - t0
+    counts, by_dtype, plain = _read_counters()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    loss = engine.meters["loss"].avg
+    steps, speeds = engine.step_times, engine.speeds
+    ckpt = os.path.join(exp, "checkpoint.pth.tar")
+    subset = engine.train_loader.cfg.frame_subset
+    by_speed = {s: [round(t, 1) for t, v in zip(steps, speeds) if v == s]
+                for s in P12_SPEEDS}
+    for i, (s, t, ms) in enumerate(zip(speeds, t_real, steps)):
+        print(f"aug_plus multi-speed step {i}: speed {s}, T_real {t}, "
+              f"{ms:.1f} ms", flush=True)
+    print(f"aug_plus multi-speed pretrain: batch {engine.batch_size}, "
+          f"{engine.cfg.get_int('temporal_transforms.size')} loaded frames, "
+          f"{len(subset)} packed, optimizer "
+          f"{type(engine.state.optimizer).__name__}, compute dtype "
+          f"{engine.dtype}, speeds {speeds}, T_real {t_real}, step ms by "
+          f"speed {by_speed}, wall {wall:.1f} s, peak memory {peak:.2f} GiB, "
+          f"loss {loss:.4f}, launches {counts}, K1/K2 launches by dtype "
+          f"{by_dtype}, plain calls on cuda {plain}, K3 "
+          f"[{MAIN_BATCH},{P12_PACKED},224,224,3] f32: {plan}, checkpoint "
+          f"{os.path.exists(ckpt)}", flush=True)
+    require(math.isfinite(loss), f"phase 12 loss {loss} not finite")
+    require(len(steps) == 3 and sorted(set(speeds)) == [2, 4],
+            f"phase 12: {len(steps)} steps at speeds {speeds}, not 3 steps "
+            f"at both speeds")
+    require(t_real == [P12_LOADED // s for s in speeds],
+            f"phase 12: T_real {t_real} for speeds {speeds}")
+    require(engine.cfg.get_int("temporal_transforms.size") == P12_LOADED
+            and len(subset) == P12_PACKED,
+            f"phase 12 loads {len(subset)} packed frames, not {P12_PACKED}")
+    require(isinstance(engine.state.optimizer, torch.optim.Adam)
+            and engine.aug_plus, "phase 12 runs without Adam or aug_plus")
+    require(engine.dtype == torch.bfloat16 and engine.batch_size
+            == MAIN_BATCH, f"phase 12: {engine.dtype}, batch "
+            f"{engine.batch_size}")
+    want = {"max_pool3d_fwd": 26 * 3, "max_pool3d_bwd": 13 * 3,
+            "color_augment": 2 * 3}
+    require(counts == want, f"phase 12 launches {counts}, not {want}")
+    require(not any(n for key, n in by_dtype.items()
+                    if not key.endswith(".bfloat16")),
+            f"K1/K2 launched off bf16 in phase 12: {by_dtype}")
+    require(not any(plain.values()),
+            f"plain versions ran on CUDA tensors: {plain}")
+    require(os.path.exists(ckpt), "phase 12: no checkpoint.pth.tar")
+    if profile:
+        report_profile(prof, wall)
+    return {"launches": counts, "steps_ms": steps, "speeds": speeds,
+            "peak_gib": peak, "checkpoint": ckpt}
+
+
+def aug_plus_validate_path(exp: str, ckpt: str) -> dict:
+    """Phase 12's ``--validate`` from its checkpoint: both speeds drawn
+    again (the stream starts anew), K1 and K3 launched, K2 not."""
+    import torch
+    from rspnet_tpu_torch import pretrain
+
+    _reset_counters()
+    t_real, restore = _record_t_real()
+    t0 = time.perf_counter()
+    try:
+        engine = pretrain.main(_main_argv(exp, "--validate",
+                                          "--load-checkpoint", ckpt,
+                                          fields=P12_FIELDS))
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    wall = time.perf_counter() - t0
+    counts, by_dtype, plain = _read_counters()
+    metrics = engine.validation
+    print(f"aug_plus multi-speed validate: wall {wall:.1f} s, speeds "
+          f"{engine.speeds}, T_real {t_real}, metrics "
+          f"{ {k: round(v, 4) for k, v in metrics.items()} }, launches "
+          f"{counts}, K1/K2 launches by dtype {by_dtype}, plain calls on "
+          f"cuda {plain}", flush=True)
+    require(metrics and all(math.isfinite(v) for v in metrics.values()),
+            f"phase 12 validate metrics not finite: {metrics}")
+    require(sorted(set(engine.speeds)) == [2, 4]
+            and t_real == [P12_LOADED // s for s in engine.speeds],
+            f"phase 12 validate: speeds {engine.speeds}, T_real {t_real}")
+    require(counts["max_pool3d_fwd"] > 0 and counts["max_pool3d_bwd"] == 0
+            and counts["color_augment"] > 0,
+            f"phase 12 validate launches {counts}")
+    require(by_dtype["max_pool3d_fwd.float32"] == 0,
+            f"phase 12 validate launched K1 off bf16: {by_dtype}")
+    require(not any(plain.values()),
+            f"plain versions ran on CUDA tensors: {plain}")
+    return {"launches": counts}
+
+
 def report_profile(prof, wall_s: float) -> None:
     """Device time of the main-path run by kernel group and the top
     kernels (all 3 steps, the first one's warm-up included)."""
@@ -1509,6 +1746,18 @@ def main(argv=None) -> int:
     check_floor_tail(dev, P11_BATCH)
     for leg in P11_PRETRAIN:
         color_zoo[leg] = color_zoo["resnet18"]
+    # phase 12's shapes: K3 in aug_plus mode on the packed clips, K1/K2
+    # bf16 at the speed-2 branch's 32-frame sites (the q batch; K1 also at
+    # the fused key batch), the blur alone on half the batch
+    err_color = max(err_color, check_color_aug_plus(
+        dev, MAIN_BATCH, (P12_PACKED, 224, 224)))
+    color_zoo["s3dg_aug_plus"] = time_color(dev, MAIN_BATCH, P12_PACKED,
+                                            224, aug_plus=True)
+    check_pool_fwd(dev, 2 * MAIN_BATCH, sites=S2_POOL_SITES,
+                   dtypes=("bfloat16",))
+    pool_zoo["s3dg_speed2"] = time_pool(dev, MAIN_BATCH, "bfloat16",
+                                        sites=S2_POOL_SITES)
+    blur = time_blur(dev, MAIN_BATCH // 2, P12_PACKED, 224)
 
     with tempfile.TemporaryDirectory() as exp:
         trained = main_path(MAIN_BATCH, os.path.join(exp, "train"),  # 4
@@ -1569,7 +1818,16 @@ def main(argv=None) -> int:
             val_clips=R3D18_FT_VAL, mixins=("add.r18k400",),
             profile=args.profile)["launches"]
         torch.cuda.empty_cache()
+        gc.collect()                                                  # 12
+        leg12 = aug_plus_path(os.path.join(exp, "aug_plus"), args.profile)
+        paths["s3dg_aug_plus_multispeed"] = leg12["launches"]
+        torch.cuda.empty_cache()
+        paths["s3dg_aug_plus_validate"] = aug_plus_validate_path(
+            os.path.join(exp, "aug_plus_validate"),
+            leg12["checkpoint"])["launches"]
+        torch.cuda.empty_cache()
     launches, launches_ft = trained["launches"], finetuned["launches"]
+    print(f"blur: {json.dumps(blur)}", flush=True)
 
     def path_keys(name, key):
         """The kernel's launches on phases 7-11's paths and its times at

@@ -62,6 +62,11 @@ class PipelineConfig:
     # (H, W) from variable-aspect sources distorts aspect slightly; the
     # Inception-style crop's aspect jitter (3/4..4/3) dwarfs it.
     decode_size: Optional[Tuple[int, int]] = None
+    # packed loading: the positions WITHIN the temporal window to decode
+    # and ship (moco.step.packed_frame_subset), e.g. 48 of 64 for the
+    # exact multi-speed union of diff_speed (4, 2); the train step's gather
+    # addresses the packed positions
+    frame_subset: Optional[Sequence[int]] = None
     # pipeline
     num_clips: int = 1                  # clips per sample (2 for MoCo)
     batch_size: int = 16
@@ -116,6 +121,9 @@ def _load_one(catalog, cfg: "PipelineConfig", index: int,
                                              c.frame_rate)
         temporal = _build_temporal_for(c, rng)
         clip_indices = [temporal(frame_indices) for _ in range(c.num_clips)]
+        if c.frame_subset is not None:
+            sub = np.asarray(c.frame_subset)
+            clip_indices = [ci[sub] for ci in clip_indices]
         all_idx = np.concatenate(clip_indices)
         out_wh = None
         if c.decode_size is not None:
@@ -318,12 +326,18 @@ def build_loader(cfg_tree, split: str, *, vid: bool = False,
         force_n_crop = True
         n_crop = tt.get_int("validate.final_n_crop")
 
+    frame_subset = None
     if vid and cfg_tree.get_bool("moco.packed_frames", False):
-        raise NotImplementedError(
-            "moco.packed_frames is not ported yet (see ROADMAP.md)")
+        from ..moco.step import packed_frame_subset
+        speeds = tuple(cfg_tree.get_list("moco.diff_speed"))
+        # multi-speed trains each step at its own T // s (exact mode,
+        # engines/pretrain.py): pack the union every branch can address
+        frame_subset = packed_frame_subset(tt.get_int("size"), speeds,
+                                           exact=len(speeds) > 1)
 
     cfg = PipelineConfig(
         clip_len=tt.get_int("size"),
+        frame_subset=frame_subset,
         frame_rate=tt.get("frame_rate", None),
         strides=[s.as_plain_dict() if hasattr(s, "as_plain_dict") else s
                  for s in tt.get_list("strides", [{"stride": 1, "weight": 1}])],

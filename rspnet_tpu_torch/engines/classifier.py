@@ -14,10 +14,18 @@ mean and the crop mean sum in f32 and round once, as ``jnp.mean`` does.
 Linear probe (``only_train_fc``, classifier.py:87-103): every parameter
 outside the classifier head gets ``requires_grad=False``, so SGD applies
 neither gradient nor weight decay to it (JAX masks the gradients and the
-updates), and BN runs in eval mode. A head that ``FC_NAMES`` does not
-name as a whole first key (SlowFast's ``head_fc``) is frozen with the
-backbone, so such a step changes no parameter, as the JAX step does (F11,
-ROADMAP.md §3).
+updates), and BN runs in eval mode. The head is named by the whole first
+key of a parameter, from ``PROBE_NAMES``.
+
+Stated deviation (F11, ROADMAP.md §3): the JAX mask
+(rspnet_tpu/engines/classifier.py:40-47 ``fc_only_mask``) names only
+``fc``, ``linear``, ``head`` and ``new_fc``, so a ``1stream`` SlowFast,
+whose classifier is ``head_fc``, trains nothing there. The port's probe
+also names ``head_fc`` and trains it, following the reference's head
+naming (SURVEY.md §1: pyslowfast's ``head_helper.py`` head is what the
+reference's ``head`` entry names). ``FC_NAMES`` keeps JAX's four names for
+the ``1stream`` overlay (``transfer.py``): a MoCo encoder has no
+``head_fc``.
 """
 from __future__ import annotations
 
@@ -31,12 +39,14 @@ from ..models.common import mean_dim as _mean
 
 # top-level module names of classifier heads (classifier.py:37-43)
 FC_NAMES = ("fc", "linear", "head", "new_fc")
+# the linear probe's heads: JAX's four and SlowFast's ``head_fc`` (F11)
+PROBE_NAMES = FC_NAMES + ("head_fc",)
 
 
 def freeze_backbone(model: nn.Module) -> None:
     """``only_train_fc``: only the classifier head's parameters train."""
     for name, p in model.named_parameters():
-        p.requires_grad_(name.split(".")[0] in FC_NAMES)
+        p.requires_grad_(name.split(".")[0] in PROBE_NAMES)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor

@@ -42,6 +42,7 @@ from ..config import ConfigTree
 from ..data.pipeline import build_loader, prefetch_iterator
 from ..framework import CheckpointManager, MeterGroup, MetricSpool, load_state
 from ..framework.checkpoint import load_optimizer_state
+from ..framework.logging import summary_writer
 from ..framework.lr_schedule import (build_optimizer, build_scheduler,
                                      set_opt_lr)
 from ..models import get_model_class
@@ -58,18 +59,6 @@ logger = logging.getLogger(__name__)
 
 TRAIN_KEYS = ("loss", "acc1", "acc5")
 SUM_KEYS = ("loss_sum", "correct1", "correct5", "count")
-
-
-def summary_writer(logdir):
-    """A tensorboardX ``SummaryWriter``, or None with a warning when
-    tensorboardX is not installed (the training engine asks once)."""
-    try:
-        from tensorboardX import SummaryWriter
-    except ImportError:
-        logger.warning("tensorboardX is not installed: no TensorBoard "
-                       "scalars are written")
-        return None
-    return SummaryWriter(logdir=str(logdir))
 
 
 def build_classifier_model(cfg: ConfigTree, dtype=None):
@@ -132,14 +121,12 @@ class FinetuneEngine:
         # the linear probe: the train step freezes the backbone
         self.only_train_fc = cfg.get_bool("only_train_fc", False)
         if self.only_train_fc and not any(
-                name.split(".")[0] in classifier.FC_NAMES
+                name.split(".")[0] in classifier.PROBE_NAMES
                 for name, _ in self.model.named_parameters()):
-            # F11 (ROADMAP.md §3): as in the JAX package, whose mask names
-            # heads by the whole first key, nothing trains
             logger.warning(
                 "only_train_fc: no classifier head named %s in %s (%s); "
-                "nothing trains, as in the JAX package (F11)",
-                "/".join(classifier.FC_NAMES), self.arch, self.model_type)
+                "nothing trains", "/".join(classifier.PROBE_NAMES),
+                self.arch, self.model_type)
         # precise-BN batches before the first epoch of a fresh run
         self.bn_recalibrate = cfg.get_int("bn_recalibrate", 0)
 

@@ -10,6 +10,16 @@ The hot loop:
 ``validate_epoch`` (``--validate``) runs the same loader and augment into
 ``moco.step.eval_step``: metrics only, nothing updated.
 
+Options, as the JAX engine takes them: ``moco.aug_plus`` (jitter (0.4, 0.4,
+0.4, 0.1) drawn with probability 0.8, gray after it, gaussian blur on half
+the clips, rspnet_tpu/engines/pretrain.py:193-198); exact multi-speed
+(``len(moco.diff_speed) > 1``: a speed drawn each step, train and
+validate, from its own stream seeded seed + 0x5BEE, and the step's
+single-speed branch at T // s, :108-123, :160-166); ``moco.packed_frames``
+(the loader ships the packed union, ``moco.step.packed_frame_subset``).
+TensorBoard scalars per epoch (``train/clips_per_sec``, the meters,
+``train/lr``) when tensorboardX is installed (:144-151, :282-291).
+
 Run-dir artifacts: checkpoint.pth.tar (epoch / arch / model / best_loss /
 optimizer / scheduler) and the model_best.pth.tar hard link. ``model`` is
 in the JAX engine's layout (``save_checkpoint``), so the JAX package's
@@ -24,8 +34,7 @@ it. TF32 is off for the f32 matmuls and convolutions that remain, and bf16
 GEMMs reduce in f32; all three flags are set explicitly and logged.
 
 Not ported yet (each raises NotImplementedError): more than one card,
-``parallel:`` 2-D layouts, more than one ``moco.diff_speed``,
-``moco.packed_frames``, ``cache_device`` and ``moco.aug_plus``.
+``parallel:`` 2-D layouts and ``cache_device``.
 """
 from __future__ import annotations
 
@@ -40,10 +49,11 @@ from ..data.pipeline import build_loader, prefetch_iterator
 from ..framework import CheckpointManager, MeterGroup, load_state
 from ..framework.checkpoint import load_optimizer_state
 from ..framework.environment import scale_learning_rate
+from ..framework.logging import summary_writer
 from ..framework.lr_schedule import build_optimizer, build_scheduler, set_opt_lr
 from ..models.convert import load_variables, state_dict_to_variables
 from ..moco import (METRIC_KEYS, build_moco_model, eval_step, init_moco_state,
-                    train_step)
+                    speed_branch_config, train_step)
 from ..ops.augment import augment_batch, sample_train_params
 from ..utils.moco import replace_moco_k_in_config
 from .normalization import dataset_normalization
@@ -72,14 +82,8 @@ def _unsupported(cfg: ConfigTree, args) -> None:
         nope("training on more than one card (--ws > 1)")
     if cfg.get("parallel", None) is not None:
         nope("the 2-D `parallel:` layout")
-    if len(cfg.get_list("moco.diff_speed")) > 1:
-        nope("exact multi-speed training (len(moco.diff_speed) > 1)")
-    if cfg.get_bool("moco.packed_frames", False):
-        nope("moco.packed_frames")
     if cfg.get("cache_device", False) not in (False, None):
         nope("cache_device")
-    if cfg.get_bool("moco.aug_plus", False):
-        nope("moco.aug_plus (gaussian blur)")
 
 
 class PretrainEngine:
@@ -142,6 +146,14 @@ class PretrainEngine:
         self.best_loss = float("inf")
         self.current_epoch = 1
         self.rng = np.random.default_rng(seed)
+        # exact multi-speed: the speed of each step, from a stream of its
+        # own (the JAX engine's draw, rspnet_tpu/engines/pretrain.py:121)
+        self.speed_rng = np.random.default_rng(seed + 0x5BEE)
+        # the speed of each step of this run
+        self.speeds = []
+        self.writer = (summary_writer(args.experiment_dir)
+                       if args.experiment_dir is not None else None)
+        self.aug_plus = cfg.get_bool("moco.aug_plus", False)
         # dataset.mean/std; debug disables normalization in the VID
         # pipeline (reference :152-162)
         self.normalize = dataset_normalization(cfg, vid_debug=self.debug)
@@ -159,9 +171,15 @@ class PretrainEngine:
         B, _, H, W, _ = clip_u8.shape
         dev_geom = getattr(self.train_loader.cfg, "device_geometry", False)
         crop_area = self.train_loader.cfg.crop_area if dev_geom else (1.0, 1.0)
-        p = sample_train_params(
-            self.rng, B, [(H, W)], crop_area=crop_area, h_flip=0.5,
-            gray_p=0.2, jitter=(0.4, 0.4, 0.4, 0.4))
+        if self.aug_plus:
+            p = sample_train_params(
+                self.rng, B, [(H, W)], crop_area=crop_area, h_flip=0.5,
+                gray_p=0.2, jitter=(0.4, 0.4, 0.4, 0.1), jitter_p=0.8,
+                blur_p=0.5)
+        else:
+            p = sample_train_params(
+                self.rng, B, [(H, W)], crop_area=crop_area, h_flip=0.5,
+                gray_p=0.2, jitter=(0.4, 0.4, 0.4, 0.4))
         if not dev_geom:
             # crop/resize already happened on the host: identity boxes
             p.boxes[:] = [0, 0, H, W]
@@ -169,9 +187,19 @@ class PretrainEngine:
         batch = torch.from_numpy(clip_u8).to(self.device)
         return augment_batch(
             batch, p, size=(self.size, self.size), mean=mean, std=std,
-            gray_before_jitter=True, use_blur=False,
+            gray_before_jitter=not self.aug_plus, use_blur=self.aug_plus,
             identity_geometry=not dev_geom and (H, W) == (self.size,
                                                           self.size))
+
+    def _step_config(self):
+        """The step's MoCo config: with more than one speed, the branch of
+        a speed drawn from ``speed_rng`` (recorded in ``speeds``)."""
+        ds = self.moco_cfg.diff_speed
+        if len(ds) == 1:
+            return self.moco_cfg
+        speed = int(ds[int(self.speed_rng.integers(len(ds)))])
+        self.speeds.append(speed)
+        return speed_branch_config(self.moco_cfg, speed)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -189,7 +217,8 @@ class PretrainEngine:
             t0 = time.perf_counter()
             clip_q = self._augment_clip(batch["clips"][0])
             clip_k = self._augment_clip(batch["clips"][1])
-            metrics = train_step(self.state, clip_q, clip_k, self.moco_cfg,
+            metrics = train_step(self.state, clip_q, clip_k,
+                                 self._step_config(),
                                  generator=self.generator)
             rows.append(torch.stack([metrics[k] for k in METRIC_KEYS]))
             self._sync()
@@ -209,6 +238,13 @@ class PretrainEngine:
         dt = time.perf_counter() - t_epoch
         logger.info("Epoch %d done in %.1fs (%.1f clips/s)", epoch, dt,
                     samples / max(dt, 1e-9))
+        if self.writer is not None:
+            self.writer.add_scalar("train/clips_per_sec",
+                                   samples / max(dt, 1e-9), epoch)
+            for k in METRIC_KEYS:
+                self.writer.add_scalar(f"train/{k}", self.meters[k].avg,
+                                       epoch)
+            self.writer.add_scalar("train/lr", self.scheduler.lr, epoch)
 
     def validate_epoch(self) -> dict:
         """One no-grad statistics epoch over the train loader at the current
@@ -221,7 +257,8 @@ class PretrainEngine:
         for i, batch in enumerate(prefetch_iterator(iter(self.train_loader))):
             clip_q = self._augment_clip(batch["clips"][0])
             clip_k = self._augment_clip(batch["clips"][1])
-            metrics = eval_step(self.state, clip_q, clip_k, self.moco_cfg,
+            metrics = eval_step(self.state, clip_q, clip_k,
+                                self._step_config(),
                                 generator=self.generator)
             rows.append(torch.stack([metrics[k] for k in METRIC_KEYS]))
             sizes.append(batch["labels"].shape[0])
@@ -235,15 +272,24 @@ class PretrainEngine:
 
     def run(self) -> None:
         num_epochs = 1 if self.debug else self.num_epochs
-        for epoch in range(self.current_epoch, num_epochs + 1):
-            self.current_epoch = epoch
-            self.train_epoch(epoch)
-            lr = self.scheduler.step(self.meters["loss"].avg)
-            set_opt_lr(self.state.optimizer, lr)
-            loss_avg = self.meters["loss"].avg
-            is_best = loss_avg < self.best_loss
-            self.best_loss = min(self.best_loss, loss_avg)
-            self.save_checkpoint(epoch, is_best)
+        try:
+            for epoch in range(self.current_epoch, num_epochs + 1):
+                self.current_epoch = epoch
+                self.train_epoch(epoch)
+                lr = self.scheduler.step(self.meters["loss"].avg)
+                set_opt_lr(self.state.optimizer, lr)
+                loss_avg = self.meters["loss"].avg
+                is_best = loss_avg < self.best_loss
+                self.best_loss = min(self.best_loss, loss_avg)
+                self.save_checkpoint(epoch, is_best)
+        finally:
+            self.close()
+
+    def close(self) -> None:
+        """Release the TensorBoard writer (its thread and file)."""
+        if self.writer is not None:
+            self.writer.close()
+            self.writer = None
 
     # -- checkpointing --------------------------------------------------------
     def save_checkpoint(self, epoch: int, is_best: bool) -> None:

@@ -1,5 +1,6 @@
 """Shared CLI bootstrap (port of rspnet_tpu/framework/bootstrap.py): parse
-args, prepare the run dir, load and save the config, seed the host RNGs.
+args, prepare the run dir, pack the code into it, load and save the
+config, seed the host RNGs.
 
 When --seed is omitted, ONE random seed is drawn here and recorded in
 args.seed and the saved config, so the run is reproducible from its
@@ -26,6 +27,7 @@ def bootstrap(argv=None):
     """-> (args, cfg)"""
     from ..config import get_config, save_config
     from .arguments import Args
+    from .code_pack import pack_code
     from .environment import ulimit_n_max
     from .logging import set_logging_basic_config
 
@@ -38,6 +40,7 @@ def bootstrap(argv=None):
         raise SystemExit("an experiment dir is required (-e)")
     args.save()
     set_logging_basic_config(args.run_dir, debug=args.debug)
+    pack_code(args.run_dir)
     ulimit_n_max()
 
     if args.seed is None:

@@ -53,3 +53,16 @@ def set_logging_basic_config(
         handlers.append(_SafeFileHandler(Path(run_dir) / filename))
 
     logging.basicConfig(level=level, format=fmt, handlers=handlers, force=True)
+
+
+def summary_writer(logdir):
+    """A tensorboardX ``SummaryWriter``, or None with a warning when
+    tensorboardX is not installed (each training engine asks once)."""
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError:
+        logging.getLogger(__name__).warning(
+            "tensorboardX is not installed: no TensorBoard scalars are "
+            "written")
+        return None
+    return SummaryWriter(logdir=str(logdir))

@@ -123,18 +123,25 @@ def build_scheduler(schedule: str, base_lr: float, *, num_epochs: int = 1,
 
 
 def build_optimizer(opt_cfg, params, lr: float):
-    """ConfigTree optimizer.* -> torch.optim.SGD over ``params``.
+    """ConfigTree optimizer.* -> a torch optimizer over ``params``
+    (rspnet_tpu/framework/lr_schedule.py:126-198).
 
-    Weight decay on ALL params, momentum, dampening and nesterov with
-    torch.optim.SGD semantics, which the JAX package reproduces with
-    add_decayed_weights + sgd / _trace_with_dampening
-    (rspnet_tpu/framework/lr_schedule.py:126-191).
+    ``sgd`` (the default): weight decay on ALL params, momentum, dampening
+    and nesterov with torch.optim.SGD semantics, which the JAX package
+    reproduces with add_decayed_weights + sgd / _trace_with_dampening.
+    ``adam``: ``optax.adam(lr, eps)``, betas (0.9, 0.999) and no weight
+    decay; as in JAX only ``lr`` and ``eps`` are read, so a
+    ``weight_decay`` that a merged config still carries is ignored.
     """
     import torch
 
     opt_type = opt_cfg.get_string("type", "sgd")
+    if opt_type == "adam":
+        return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999),
+                                eps=opt_cfg.get_float("eps", 1e-8),
+                                weight_decay=0.0)
     if opt_type != "sgd":
-        raise NotImplementedError(f"optimizer {opt_type!r} is not ported yet")
+        raise ValueError(f"Unknown optimizer type {opt_type!r}")
     dampening = opt_cfg.get_float("dampening", 0.0)
     nesterov = opt_cfg.get_bool("nesterov", False)
     if dampening and nesterov:

@@ -1,7 +1,8 @@
 """SSL task layer: MoCo with dual pretext heads (A-VID + RSP)."""
 from .step import (METRIC_KEYS, MoCoConfig, MoCoState, diff_speed_gather,
-                   eval_step, init_moco_state, momentum_update, queue_update,
-                   train_step)
+                   eval_step, init_moco_state, momentum_update,
+                   packed_frame_subset, queue_update, speed_branch_config,
+                   speed_index_sets, train_step)
 from .wrapper import MultiTaskWrapper
 
 
@@ -27,6 +28,10 @@ def build_moco_model(cfg, dtype=None):
         fc_type=cfg.get_string("moco.fc_type", "linear"),
         loss_lambda_a=cfg.get_float("loss_lambda.A", 1.0),
         loss_lambda_m=cfg.get_float("loss_lambda.M", 1.0),
+        packed_frames=cfg.get_bool("moco.packed_frames", False),
+        t_load=(int(cfg.get("temporal_transforms.size"))
+                if cfg.get("temporal_transforms.size", None) is not None
+                else None),
     )
     model = MultiTaskWrapper(factory(dtype=dtype),
                              num_classes=moco_cfg.dim,
@@ -36,4 +41,5 @@ def build_moco_model(cfg, dtype=None):
 
 __all__ = ["MultiTaskWrapper", "MoCoConfig", "MoCoState", "METRIC_KEYS",
            "build_moco_model", "init_moco_state", "train_step", "eval_step",
-           "momentum_update", "queue_update", "diff_speed_gather"]
+           "momentum_update", "queue_update", "diff_speed_gather",
+           "packed_frame_subset", "speed_branch_config", "speed_index_sets"]

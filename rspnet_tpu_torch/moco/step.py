@@ -14,13 +14,24 @@ permutation that picks the fast half and the speed row are drawn from a
 ``torch.Generator`` unless the caller passes them in (the parity tests feed
 the JAX step's draws). ``eval_step`` is the ``--validate`` counterpart: the
 same metrics from eval-mode encoders, with nothing updated.
+
+Exact multi-speed (``len(diff_speed) > 1``): the engine draws a speed s
+each step and calls ``train_step`` / ``eval_step`` with the single-speed
+branch ``speed_branch_config(cfg, s)``, which trains at the reference's
+T_real = T // s (rspnet_tpu/moco/builder.py:188-207; JAX compiles one step
+per branch, eager torch needs none). Every state tensor has the same shape
+in each branch, so the branches share one ``MoCoState``. Packed frames
+(``packed_frames``): the loader ships only the positions of
+``packed_frame_subset`` and the gather addresses them through
+``searchsorted``.
 """
 from __future__ import annotations
 
 import copy
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -44,6 +55,14 @@ class MoCoConfig:
     loss_lambda_m: float = 1.0
     margin: float = 2.0          # reference: pretrain.py:49-53
     alpha: float = 0.5           # batch split fraction (reference :334)
+    # the loader ships only packed_frame_subset's positions; t_load is the
+    # unpacked window length (temporal_transforms.size)
+    packed_frames: bool = False
+    t_load: Optional[int] = None
+    # a single-speed branch of exact multi-speed: the speeds the loader
+    # packed for (the exact union); None: packed_frame_subset(t_load,
+    # diff_speed)
+    pack_speeds: Optional[Tuple[int, ...]] = None
 
 
 @dataclass
@@ -85,20 +104,68 @@ def real_clip_len(T: int, diff_speed: Sequence[int]) -> int:
     return T // max(diff_speed)
 
 
+def speed_index_sets(T: int, diff_speed: Sequence[int]) -> np.ndarray:
+    """[n_speeds, T // max(diff_speed)]: row i is
+    arange(0, T, diff_speed[i])[:T_real] (step_core.py:123-131)."""
+    t_real = real_clip_len(T, diff_speed)
+    return np.stack([np.arange(0, T, s)[:t_real] for s in diff_speed])
+
+
+def packed_frame_subset(T: int, diff_speed: Sequence[int],
+                        exact: bool = False) -> np.ndarray:
+    """Sorted union of the window positions any speed row can touch
+    (step_core.py:134-159): with ``exact`` each speed s needs its own slow
+    window range(T // s) and its fast row (multi-speed, T_real = T // s);
+    otherwise every row is T // max(diff_speed) long."""
+    need = set()
+    for s in diff_speed:
+        t_real = T // s if exact else real_clip_len(T, diff_speed)
+        need.update(range(t_real))
+        need.update(range(0, T, s)[:t_real])
+    return np.asarray(sorted(need), np.int64)
+
+
+def speed_branch_config(cfg: MoCoConfig, speed: int) -> MoCoConfig:
+    """The single-speed branch of an exact multi-speed config
+    (step_core.py:228-237); with packed frames it addresses the exact
+    union the loader packed (``pack_speeds``)."""
+    return replace(cfg, diff_speed=(speed,),
+                   pack_speeds=(tuple(cfg.diff_speed) if cfg.packed_frames
+                                else None))
+
+
 def diff_speed_gather(im_q: torch.Tensor, im_k: torch.Tensor,
                       cfg: MoCoConfig, *, perm: Optional[torch.Tensor] = None,
                       speed_index: Optional[int] = None,
                       generator: Optional[torch.Generator] = None):
     """Dual-speed subsampling (reference _diff_speed :421-447).
 
-    im_q, im_k: [B, T, H, W, C]. Returns (q_real, k_real, k_negative), each
-    [B, T // max(diff_speed), H, W, C]: the samples ``perm[B*alpha:]`` play
-    at the fast speed, the rest at normal speed, and the negative key plays
-    at the opposite speed of its query.
+    im_q, im_k: [B, T, H, W, C] ([B, P, H, W, C] with ``packed_frames``,
+    P = len(packed_frame_subset(t_load, ...))). Returns (q_real, k_real,
+    k_negative), each [B, T // max(diff_speed), H, W, C]: the samples
+    ``perm[B*alpha:]`` play at the fast speed, the rest at normal speed,
+    and the negative key plays at the opposite speed of its query.
     """
-    B, T = im_q.shape[:2]
+    B = im_q.shape[0]
     dev = im_q.device
+    if cfg.packed_frames and cfg.t_load is None:
+        raise ValueError("moco.packed_frames needs t_load, the unpacked "
+                         "window length (temporal_transforms.size)")
+    T = cfg.t_load if cfg.packed_frames else im_q.shape[1]
     t_real = real_clip_len(T, cfg.diff_speed)
+    speed1 = np.arange(t_real)
+    table = speed_index_sets(T, cfg.diff_speed)
+    if cfg.packed_frames:
+        # window positions -> positions within the packed subset
+        subset = (packed_frame_subset(T, cfg.pack_speeds, exact=True)
+                  if cfg.pack_speeds is not None
+                  else packed_frame_subset(T, cfg.diff_speed))
+        if im_q.shape[1] != len(subset):
+            raise ValueError(
+                f"packed input has {im_q.shape[1]} frames, the subset needs "
+                f"{len(subset)} (t_load={T}, diff_speed={cfg.diff_speed})")
+        speed1 = np.searchsorted(subset, speed1)
+        table = np.searchsorted(subset, table)
     if perm is None:
         perm = torch.randperm(B, generator=generator,
                               device=generator.device)
@@ -109,9 +176,8 @@ def diff_speed_gather(im_q: torch.Tensor, im_k: torch.Tensor,
     perm = torch.as_tensor(perm, device=dev, dtype=torch.long)
     is_fast = torch.zeros(B, dtype=torch.bool, device=dev)
     is_fast[perm[int(B * cfg.alpha):]] = True
-    speed1 = torch.arange(t_real, device=dev)
-    speed2 = torch.arange(0, T, cfg.diff_speed[speed_index],
-                          device=dev)[:t_real]
+    speed1 = torch.from_numpy(speed1).to(dev)
+    speed2 = torch.from_numpy(table[speed_index]).to(dev)
     idx_same = torch.where(is_fast[:, None], speed2[None], speed1[None])
     idx_opp = torch.where(is_fast[:, None], speed1[None], speed2[None])
     rows = torch.arange(B, device=dev)[:, None]

@@ -230,10 +230,16 @@ def augment_batch(batch: torch.Tensor, params: AugmentParams, *,
     the uint8 clip goes straight to K3, which flips the input. Otherwise the
     clip is scaled to [0, 1], cropped and resized with the flip folded in,
     and the float result goes to K3 (rspnet_tpu/ops/augment.py:467).
+
+    ``use_blur`` (``aug_plus``): JAX blurs the clips whose ``blur`` is set
+    after the jitter and gray and before the normalize
+    (rspnet_tpu/ops/augment.py:433-461). The blur's zero padding does not
+    commute with the normalize that K3 fuses, so K3 runs with mean 0 and
+    std 1 (exact: ``(v - 0) / 1``), the selected clips are blurred, and the
+    batch is normalized in place. K3 flips an identity-geometry clip before
+    the blur where JAX flips after it: the kernel and its padding are
+    symmetric in W, so the two agree up to the order of the sums.
     """
-    if use_blur:
-        raise NotImplementedError(
-            "aug_plus gaussian blur is not ported yet (see ROADMAP.md)")
     flip = np.asarray(params.flip, bool)
     if identity_geometry:
         if tuple(batch.shape[2:4]) != tuple(size):
@@ -246,9 +252,21 @@ def augment_batch(batch: torch.Tensor, params: AugmentParams, *,
         x = crop_resize(x, torch.from_numpy(np.asarray(params.boxes)), size,
                         flip=torch.from_numpy(flip))
         flip_in_kernel = np.zeros_like(flip)
-    return color_augment(x, params.order, params.jitter, params.gray,
-                         flip_in_kernel, mean=mean, std=std,
-                         gray_before_jitter=gray_before_jitter)
+    if not use_blur:
+        return color_augment(x, params.order, params.jitter, params.gray,
+                             flip_in_kernel, mean=mean, std=std,
+                             gray_before_jitter=gray_before_jitter)
+    x = color_augment(x, params.order, params.jitter, params.gray,
+                      flip_in_kernel, mean=(0.0, 0.0, 0.0),
+                      std=(1.0, 1.0, 1.0),
+                      gray_before_jitter=gray_before_jitter)
+    blur = np.flatnonzero(np.asarray(params.blur, bool))
+    if blur.size:
+        rows = torch.from_numpy(blur).to(x.device)
+        x.index_copy_(0, rows, color.gaussian_blur(x.index_select(0, rows)))
+    mean_t = torch.tensor(mean, dtype=x.dtype, device=x.device)
+    std_t = torch.tensor(std, dtype=x.dtype, device=x.device)
+    return x.sub_(mean_t).div_(std_t)
 
 
 def eval_preprocess(batch: torch.Tensor, boxes, *, size: Tuple[int, int],

@@ -6,9 +6,10 @@ datasets/transforms_video/functional_tensor.py). Clips are channel-last
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 # ITU-R 601-2 luma weights (reference: functional_tensor.py:98)
 LUMA = (0.2989, 0.5870, 0.1140)
@@ -87,6 +88,36 @@ def adjust_hue(img: torch.Tensor, factor: float) -> torch.Tensor:
     hsv = rgb_to_hsv(img)
     h = torch.remainder(hsv[..., 0] + factor, 1.0)
     return hsv_to_rgb(torch.stack([h, hsv[..., 1], hsv[..., 2]], dim=-1))
+
+
+def gaussian_kernel1d(kernel_size: int, sigma: float,
+                      device=None) -> torch.Tensor:
+    x = torch.arange(kernel_size, dtype=torch.float32, device=device)
+    g = torch.exp(-((x - kernel_size // 2) ** 2) / (2.0 * sigma ** 2))
+    return g / torch.sum(g)
+
+
+def gaussian_kernel2d(kernel_size: Tuple[int, int],
+                      sigma: Tuple[float, float],
+                      device=None) -> torch.Tensor:
+    kx = gaussian_kernel1d(kernel_size[0], sigma[0], device)
+    ky = gaussian_kernel1d(kernel_size[1], sigma[1], device)
+    return kx[:, None] * ky[None, :]
+
+
+def gaussian_blur(clip: torch.Tensor, kernel_size: Tuple[int, int] = (3, 3),
+                  sigma: Tuple[float, float] = (1.5, 1.5)) -> torch.Tensor:
+    """Depthwise gaussian blur with zero padding over [..., H, W, C] (the
+    leading axes ride the batch), in the clip's dtype
+    (rspnet_tpu/ops/color.py:140-156: an XLA convolution outside any
+    Pallas kernel; here a grouped ``F.conv2d`` on the channels-last view)."""
+    *_, h, w, c = clip.shape
+    x = clip.reshape(-1, h, w, c).permute(0, 3, 1, 2)
+    kernel = gaussian_kernel2d(kernel_size, sigma, clip.device)
+    weight = kernel.to(clip.dtype)[None, None].expand(c, 1, *kernel.shape)
+    out = F.conv2d(x, weight, padding=((kernel_size[0] - 1) // 2,
+                                       (kernel_size[1] - 1) // 2), groups=c)
+    return out.permute(0, 2, 3, 1).reshape(clip.shape)
 
 
 def normalize(clip: torch.Tensor, mean: Sequence[float],

@@ -156,11 +156,13 @@ def _plan(build: str, shape: Tuple[int, ...], in_u8: bool, aligned: bool,
         sms = torch.cuda.get_device_properties(device).multi_processor_count
     p = dict(zip(PLAN_KEYS, plan))
     # the resident grid must hold a whole clip and be co-resident: as many
-    # CTAs as the occupancy query lets run on every SM at once
+    # CTAs as the occupancy query lets run on every SM at once. A plan that
+    # is not (a clip near the card's shared memory, such as the packed
+    # 48-frame clip at 224², 28.9 MB in f32) takes the generic instance,
+    # whose plan the library gives for an unaligned input
     if p["resident"] and not (p["ctas"] == p["ctas_per_sm"] * sms
                               and p["ctas"] * p["rows_per_cta"] >= T * H):
-        raise RuntimeError(f"color_augment: bad resident plan {p} for "
-                           f"{shape} on {sms} SMs")
+        return _plan(build, shape, in_u8, False, device)
     return tuple(plan)
 
 

@@ -31,7 +31,10 @@ def main(argv=None):
 
     if args.validate:
         logger.info("--validate: running a single no-grad statistics epoch")
-        engine.validate_epoch()
+        try:
+            engine.validate_epoch()
+        finally:
+            engine.close()
         return engine
 
     engine.run()

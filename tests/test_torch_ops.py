@@ -361,11 +361,3 @@ def test_color_augment_cpu_path_launches_no_kernel():
                       np.zeros(2, bool), np.zeros(2, bool),
                       mean=(0, 0, 0), std=(1, 1, 1))
     assert tca.launches == before
-
-
-def test_blur_not_ported_raises():
-    p = taug.sample_train_params(np.random.default_rng(0), 1, [(4, 4)],
-                                 crop_area=(1.0, 1.0))
-    with pytest.raises(NotImplementedError):
-        taug.augment_batch(torch.zeros(1, 1, 4, 4, 3, dtype=torch.uint8), p,
-                           size=(4, 4), use_blur=True)

@@ -65,9 +65,7 @@ def test_cuda_without_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [
-    ", moco+: {diff_speed: [4, 2]}", ", moco+: {packed_frames: true}",
-    ", cache_device: true", ", moco+: {aug_plus: true}",
-    ", parallel: {data: 1, model: 2}"])
+    ", cache_device: true", ", parallel: {data: 1, model: 2}"])
 def test_unported_options_raise(tmp_path, monkeypatch, extra):
     monkeypatch.chdir(REPO_ROOT)
     with pytest.raises(NotImplementedError):

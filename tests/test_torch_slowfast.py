@@ -27,9 +27,9 @@ the JAX package's, on the CPU.
   builds as a bare backbone, a pretraining wrapper and a finetuning one.
 - bf16: the non-local block, both instantiations, against the JAX block
   built with ``dtype=jnp.bfloat16`` (tests/test_torch_bf16.py's style).
-- ``only_train_fc`` on a SlowFast ``1stream`` model trains nothing, as in
-  the JAX package (F11, ROADMAP.md §3); two ``1stream`` steps with the
-  JAX step's dropout masks at 1e-8.
+- ``only_train_fc`` on a SlowFast ``1stream`` model trains ``head_fc``
+  alone, where the JAX package trains nothing (F11, ROADMAP.md §3); two
+  ``1stream`` steps with the JAX step's dropout masks at 1e-8.
 - The CLI: ``-x '{arch: "slowfast"}'`` (the preset's mapping
   ``cfg_file``) and a YAML ``cfg_file`` on the CPU at test sizes.
 """
@@ -329,12 +329,15 @@ def test_bf16_non_local_block(inst):
 
 
 def test_linear_probe_trains_nothing_f11():
-    """F11 (ROADMAP.md §3): the JAX linear probe masks the parameters
-    whose whole first key is ``fc`` / ``linear`` / ``head`` / ``new_fc``
-    (rspnet_tpu/engines/classifier.py:40), and SlowFast's classifier is
-    ``head_fc``, so one ``only_train_fc`` step of a ``1stream`` SlowFast
-    changes no parameter and no BN statistic in either package; the loss
-    agrees (f64, 1e-8)."""
+    """F11 (ROADMAP.md §3), repaired in the port: the JAX linear probe
+    masks the parameters whose whole first key is ``fc`` / ``linear`` /
+    ``head`` / ``new_fc`` (rspnet_tpu/engines/classifier.py:40), and
+    SlowFast's classifier is ``head_fc``, so one ``only_train_fc`` step of
+    a ``1stream`` SlowFast moves no parameter in JAX. The port's probe
+    (``classifier.PROBE_NAMES``) trains ``head_fc`` and nothing else: every
+    other parameter and every BN statistic keeps its bits. The loss agrees
+    (f64, 1e-8). ``multitask`` probes, which train the wrapper's ``fc``,
+    stay pinned to JAX by tests/test_torch_classifier.py."""
     import optax
 
     from rspnet_tpu.engines.classifier import (TrainState,
@@ -375,9 +378,13 @@ def test_linear_probe_trains_nothing_f11():
                                     only_train_fc=True)
     np.testing.assert_allclose(float(metrics["loss"]),
                                float(jmetrics["loss"]), atol=ATOL, rtol=RTOL)
-    assert not any(p.requires_grad for p in net.parameters())
+    trained = {n for n, p in net.named_parameters() if p.requires_grad}
+    assert trained == {"head_fc.weight", "head_fc.bias"}
     for k, t in net.state_dict().items():
-        assert torch.equal(t, before[k]), k
+        if k in trained:
+            assert not torch.equal(t, before[k]), k
+        else:
+            assert torch.equal(t, before[k]), k
 
 
 def _slowfast_x(extra):
