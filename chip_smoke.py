@@ -124,6 +124,25 @@ Phases, each printing its own lines:
      branch's 13 sites (32 frames; batch 64, K1 also 128) and time them,
      time K3 in this mode, and time the blur alone, checked against the
      CPU. With ``--profile`` the leg is traced.
+ 13. more than one rank, on the one card (two processes share it: the
+     numbers measure the collectives' overhead, not scaling), at full
+     width (config/pretrain/s3dg.jsonnet, 224², T 32 -> 16, K 16384,
+     global batch 64 = 2 ranks x 32): (a) two ranks of
+     ``chip_smoke.py --multirank`` in one gloo group, 1-D layout: one f32
+     step held to the one-rank f32 step on the global batch with the same
+     draws (limits ``P13_TOL``), then 3 bf16 steps from uint8 clips (K1
+     26, K2 13 calls, K3 2 a step a rank, exactly; the all-reduces
+     counted), the ranks' parameters, BN statistics, queue and pointer
+     bit-equal after each; (b) the same ranks in the 2-D layout
+     ``parallel: {data: 1, model: 2}``, one f32 step held to the same
+     one-rank step (the queue gathered dense); (c) an NCCL group of one
+     rank: one bf16 step through every collective equals the step without
+     a group bit for bit, and 3 bf16 steps of one process at the per-rank
+     batch are timed with the BNs' moments over that group (the
+     cross-replica BN's cost a rank) beside 3 without a group; (d) phase
+     4 runs the CLI with ``--ws 1``: no group, no collective. Phases 2/3
+     hold K1/K2 bit-equal at the per-rank q batch (32, bf16) and K3 to
+     its plain version on its clips, and time them.
 Then one JSON line with the kernels, the card line again, and the result
 line ``{"ok": true, "device": {...}}`` last. Any failure exits non-zero
 before the result line. Imports nothing of JAX or of rspnet_tpu.
@@ -303,6 +322,25 @@ P12_SPEEDS, P12_LOADED, P12_PACKED = (4, 2), 64, 48
 S2_POOL_SITES = [(name, (2 * t, h, w, c), k, s, p)
                  for name, (t, h, w, c), k, s, p in POOL_SITES]
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+# phase 13: two ranks share the card, per-rank batch 32 of a global 64
+P13_RANKS, P13_BATCH = 2, 32
+P13_GLOBAL = P13_RANKS * P13_BATCH
+P13_TIMEOUT_S = 600
+# f32 limits of a multi-rank step against the one-rank step on the same
+# global batch and draws. The two differ only in rounding: the gradient
+# summed over two halves, BN moments as E[x^2] - E[x]^2 over two halves
+# (the JAX package's formula) against cuDNN's, cuDNN's algorithms at batch
+# 32 against 64. What the forward computes (BN statistics, keys, loss)
+# moves by about 1e-6 of its scale; the update goes through S3D-G's whole
+# backward, where one step's f32 rounding alone moves it by up to a few
+# percent (rank 0 prints that floor: the one-rank step on the batch with
+# its rows reversed). A layout fault moves each by its own size: a
+# gradient summed, not averaged, an update error of 1; each rank's own
+# gradient, one near 1; BN moments of one rank, statistics off by about
+# 1e-1 of their scale; keys out of rank order, a queue error near 1.
+P13_TOL = {"update_rel_l2": 0.1, "bn_stats_rel": 1e-3,
+           "key_params_rel": 1e-6, "queue_abs": 1e-3, "loss_rel": 1e-3,
+           "acc_abs": 100.0 / P13_GLOBAL}
 
 
 class SmokeError(RuntimeError):
@@ -880,12 +918,14 @@ def _main_argv(exp: str, *more: str,
 
 
 def main_path(batch: int, exp: str, profile: bool = False) -> dict:
-    """Phase 4: 3 train steps through the CLI entry point; returns the
+    """Phase 4: 3 train steps through the CLI entry point with ``--ws 1``
+    (also phase 13 (d): one process, no group, no collective); returns the
     launches, step times, peak memory and the checkpoint it wrote."""
     import torch
+    import torch.distributed as dist
     from rspnet_tpu_torch import pretrain
 
-    argv = _main_argv(exp)
+    argv = _main_argv(exp, "--ws", "1")
     torch.cuda.reset_peak_memory_stats()
     _reset_counters()
     t0 = time.perf_counter()
@@ -923,6 +963,8 @@ def main_path(batch: int, exp: str, profile: bool = False) -> dict:
     require(not any(plain.values()),
             f"plain versions ran on CUDA tensors: {plain}")
     require(os.path.exists(ckpt), "checkpoint.pth.tar was not written")
+    require(not dist.is_initialized() and engine.mesh.group is None,
+            "main path: --ws 1 made a process group")
     if profile:
         report_profile(prof, wall)
     return {"launches": counts, "steps_ms": steps, "peak_gib": peak,
@@ -1606,6 +1648,426 @@ def aug_plus_validate_path(exp: str, ckpt: str) -> dict:
     return {"launches": counts}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: two ranks on one card (the collectives' overhead, not scaling)
+# ---------------------------------------------------------------------------
+
+def _p13_state(dtype, mesh=None):
+    """A fresh MoCo state of config/pretrain/s3dg.jsonnet at full width (K
+    16384), weights and queue from seed 0 / 1 on every rank, the BNs over
+    ``mesh``'s group, the queue sharded on a 2-D mesh; the lr of a global
+    batch of 64."""
+    import torch
+    from rspnet_tpu_torch.config import load_config
+    from rspnet_tpu_torch.framework.environment import scale_learning_rate
+    from rspnet_tpu_torch.framework.lr_schedule import build_optimizer
+    from rspnet_tpu_torch.models.common import set_bn_process_group
+    from rspnet_tpu_torch.moco import (build_moco_model, init_moco_state,
+                                       shard_queue_2d)
+    cfg = load_config("config/pretrain/s3dg.jsonnet", [])
+    torch.manual_seed(0)
+    model, mcfg = build_moco_model(cfg, dtype=dtype)
+    model = model.cuda().to(memory_format=torch.channels_last_3d)
+    lr = scale_learning_rate(cfg.get_float("optimizer.lr"), 1, P13_GLOBAL)
+    opt = build_optimizer(cfg.get_config("optimizer"), model.parameters(),
+                          lr)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    state = init_moco_state(model, mcfg, opt, gen)
+    if mesh is not None and mesh.group is not None:
+        set_bn_process_group(state.model_q, mesh.group)
+        set_bn_process_group(state.model_k, mesh.group)
+        if mesh.is_2d:
+            state.queue = shard_queue_2d(state.queue, mesh)
+    return state, mcfg, cfg
+
+
+def _p13_snapshot(state, metrics, mesh=None) -> dict:
+    """The state after a step on the host: both encoders' parameters and
+    buffers, the dense queue, the pointer, the metrics."""
+    from rspnet_tpu_torch.moco import gather_queue_2d
+    queue = state.queue
+    if mesh is not None and mesh.is_2d:
+        queue = gather_queue_2d(queue, mesh)
+    return {"q": {k: v.detach().cpu().clone()
+                  for k, v in state.model_q.state_dict().items()},
+            "k": {k: v.detach().cpu().clone()
+                  for k, v in state.model_k.state_dict().items()},
+            "queue": queue.detach().cpu().clone(), "ptr": state.queue_ptr,
+            "metrics": {k: float(v) for k, v in metrics.items()}}
+
+
+def _p13_inputs(rank: int):
+    """The f32 global batch (64 normalized clips of 32 frames at 224², q
+    and k, from seed 2 on the card), this rank's rows of it, the per-rank
+    permutations (seed 3 + r) and the one-rank permutation with the same
+    fast half."""
+    import torch
+    g = torch.Generator(device="cuda")
+    g.manual_seed(2)
+    shape = (P13_GLOBAL, 32, 224, 224, 3)
+    q = torch.randn(shape, generator=g, device="cuda")
+    k = q + 0.1 * torch.randn(shape, generator=g, device="cuda")
+    perms = []
+    for r in range(P13_RANKS):
+        g.manual_seed(3 + r)
+        perms.append(torch.randperm(P13_BATCH, generator=g, device="cuda"))
+    half = P13_BATCH // 2
+    glob = torch.cat([perms[r][:half] + r * P13_BATCH
+                      for r in range(P13_RANKS)]
+                     + [perms[r][half:] + r * P13_BATCH
+                        for r in range(P13_RANKS)])
+    rows = slice(rank * P13_BATCH, (rank + 1) * P13_BATCH)
+    return q, k, q[rows].clone(), k[rows].clone(), perms[rank], glob
+
+
+def _p13_f32_step(mesh, q, k, perm) -> dict:
+    import torch
+    from rspnet_tpu_torch.moco import layout_for, train_step
+    state, mcfg, _ = _p13_state(None, mesh)
+    before = {n: p.detach().cpu().clone()
+              for n, p in state.model_q.named_parameters()}
+    metrics = train_step(state, q, k, mcfg, perm=perm, speed_index=0,
+                         layout=layout_for(mesh))
+    snap = _p13_snapshot(state, metrics, mesh)
+    snap["before"] = before
+    del state
+    torch.cuda.empty_cache()
+    return snap
+
+
+def _p13_errors(got: dict, ref: dict) -> dict:
+    """Errors of a multi-rank f32 step against the one-rank step: the
+    parameter update's relative L2 error, the largest relative error of
+    a BN statistic and of the key encoder, the queue's largest absolute
+    error, the loss's relative error and the largest accuracy error."""
+    import torch
+    num = den = 0.0
+    for name, p0 in ref["before"].items():
+        d_ref = ref["q"][name].double() - p0.double()
+        d_got = got["q"][name].double() - p0.double()
+        num += float(((d_got - d_ref) ** 2).sum())
+        den += float((d_ref ** 2).sum())
+
+    def rel(a, b):
+        return float((a.double() - b.double()).abs().max()
+                     / b.double().abs().max().clamp_min(1e-30))
+    stats = max(rel(got[w][n], ref[w][n]) for w in ("q", "k")
+                for n in ref[w] if n.endswith(("running_mean",
+                                               "running_var")))
+    key_params = max(rel(got["k"][n], ref["k"][n]) for n in ref["k"]
+                     if not n.endswith(("running_mean", "running_var",
+                                        "num_batches_tracked")))
+    mg, mr = got["metrics"], ref["metrics"]
+    return {"update_rel_l2": math.sqrt(num / den), "bn_stats_rel": stats,
+            "key_params_rel": key_params,
+            "queue_abs": float((got["queue"] - ref["queue"]).abs().max()),
+            "loss_rel": abs(mg["loss"] - mr["loss"]) / abs(mr["loss"]),
+            "acc_abs": max(abs(mg[n] - mr[n]) for n in mr
+                           if n.startswith("acc")),
+            "ptr": (got["ptr"], ref["ptr"]),
+            "counters": all(torch.equal(got[w][n], ref[w][n])
+                            for w in ("q", "k") for n in ref[w]
+                            if n.endswith("num_batches_tracked"))}
+
+
+def _p13_check(what: str, err: dict) -> None:
+    print(f"multi-rank {what} f32 step against one rank: "
+          f"{json.dumps(err)}", flush=True)
+    for key, limit in P13_TOL.items():
+        require(err[key] <= limit,
+                f"phase 13 {what}: {key} {err[key]} above {limit}")
+    require(err["ptr"][0] == err["ptr"][1] and err["counters"],
+            f"phase 13 {what}: pointer or BN counters differ: {err}")
+
+
+def _p13_digest(state) -> str:
+    """sha256 of both encoders' parameters and buffers, the queue and the
+    pointer, in one order on every rank."""
+    import hashlib
+    h = hashlib.sha256()
+    for net in (state.model_q, state.model_k):
+        for name, t in net.state_dict().items():
+            h.update(name.encode())
+            h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    h.update(state.queue.detach().cpu().numpy().tobytes())
+    h.update(str(state.queue_ptr).encode())
+    return h.hexdigest()
+
+
+def multirank_worker(out_dir: str) -> int:
+    """One rank of phase 13 (chip_smoke.py --multirank OUT_DIR, two of
+    them on one card through gloo): (a) one f32 step in the 1-D layout,
+    (b) one in the 2-D layout ``parallel: {data: 1, model: 2}``, both held
+    by rank 0 against the one-rank f32 step on the global batch, then 3
+    bf16 steps in the 1-D layout from uint8 clips (K3, K1, K2 counted),
+    the ranks' states bit-equal after each."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    os.chdir(os.path.dirname(os.path.abspath(__file__)))
+    from rspnet_tpu_torch.engines.normalization import dataset_normalization
+    from rspnet_tpu_torch.moco import layout_for, train_step
+    from rspnet_tpu_torch.ops.augment import augment_batch, sample_train_params
+    from rspnet_tpu_torch.parallel import (barrier, collectives, create_mesh,
+                                           create_mesh_2d, local_rank)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    # gloo on the card, which both ranks share (NCCL wants a card a rank)
+    torch.cuda.set_device(local_rank())
+    dist.init_process_group("gloo", init_method="env://",
+                            world_size=int(os.environ["WORLD_SIZE"]),
+                            rank=int(os.environ["RANK"]))
+    rank = dist.get_rank()
+    mesh = create_mesh()
+    q, k, q_loc, k_loc, perm, glob = _p13_inputs(rank)
+    if rank:
+        del q, k
+    t0 = time.perf_counter()
+    got_1d = _p13_f32_step(mesh, q_loc, k_loc, perm)          # (a)
+    t_1d = time.perf_counter() - t0
+    mesh_2d = create_mesh_2d(1, P13_RANKS)
+    t0 = time.perf_counter()
+    got_2d = _p13_f32_step(mesh_2d, q_loc, k_loc, perm)       # (b)
+    t_2d = time.perf_counter() - t0
+    del q_loc, k_loc
+    torch.cuda.empty_cache()
+    result = {"rank": rank, "f32_step_s": {"1d": t_1d, "2d": t_2d}}
+    if rank == 0:
+        from rspnet_tpu_torch.parallel import Mesh
+        ref = _p13_f32_step(Mesh(), q, k, glob)
+        # the rounding floor: the same step on the rows reversed
+        flipped = _p13_f32_step(Mesh(), q.flip(0), k.flip(0),
+                                P13_GLOBAL - 1 - glob)
+        # its keys were enqueued in reversed order
+        flipped["queue"][:, :P13_GLOBAL] = \
+            flipped["queue"][:, :P13_GLOBAL].flip(1)
+        del q, k
+        torch.cuda.empty_cache()
+        result["errors"] = {"1d": _p13_errors(got_1d, ref),
+                            "2d": _p13_errors(got_2d, ref),
+                            "rows_reversed": _p13_errors(flipped, ref)}
+        print(f"multi-rank f32 rounding floor (one rank, rows reversed): "
+              f"{json.dumps(result['errors']['rows_reversed'])}",
+              flush=True)
+        _p13_check("1-D", result["errors"]["1d"])
+        _p13_check("2-D", result["errors"]["2d"])
+    barrier()
+
+    # 3 bf16 steps from uint8 clips, the engine's augment and draws
+    state, mcfg, cfg = _p13_state(torch.bfloat16, mesh)
+    layout = layout_for(mesh)
+    mean, std = dataset_normalization(cfg)
+    rng = np.random.default_rng(rank)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1 + rank)
+    g_u8 = torch.Generator(device="cuda")
+    rows = slice(rank * P13_BATCH, (rank + 1) * P13_BATCH)
+    # every collective is one all-reduce (parallel/collectives.py),
+    # counted where it is called
+    reduces = collectives.all_reduces
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    reduces.update(calls=0, bytes=0)
+    steps, digests = [], []
+    for i in range(3):
+        g_u8.manual_seed(100 + i)
+        clips = [torch.randint(0, 256, (P13_GLOBAL, 32, 128, 171, 3),
+                               generator=g_u8, device="cuda",
+                               dtype=torch.uint8)[rows] for _ in range(2)]
+        barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        aug = []
+        for c in clips:
+            p = sample_train_params(rng, P13_BATCH, [(128, 171)],
+                                    crop_area=(0.4, 1.0), h_flip=0.5,
+                                    gray_p=0.2, jitter=(0.4, 0.4, 0.4, 0.4))
+            aug.append(augment_batch(c, p, size=(224, 224), mean=mean,
+                                     std=std))
+        metrics = train_step(state, aug[0], aug[1], mcfg, generator=gen,
+                             layout=layout)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0) * 1000.0)
+        require(math.isfinite(loss), f"phase 13 rank {rank} loss {loss}")
+        digests.append(_p13_digest(state))
+        del clips, aug
+    counts, by_dtype, plain = _read_counters()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    every = [None] * P13_RANKS
+    dist.all_gather_object(every, digests)
+    result.update(steps_ms=steps, peak_gib=peak, launches=counts,
+                  all_reduces_per_step=reduces["calls"] / 3,
+                  all_reduce_mib_per_step=reduces["bytes"] / 3 / 2 ** 20,
+                  by_dtype=by_dtype, plain=plain, loss=loss,
+                  ranks_equal=[len(set(d)) == 1 for d in zip(*every)])
+    print(f"multi-rank rank {rank}: 3 bf16 steps (1-D), per-rank batch "
+          f"{P13_BATCH}, step ms {[round(t, 1) for t in steps]}, "
+          f"all-reduces {reduces['calls'] / 3:.0f} a step summing "
+          f"{reduces['bytes'] / 3 / 2 ** 20:.2f} MiB, peak memory "
+          f"{peak:.2f} GiB, loss {loss:.4f}, "
+          f"launches {counts}, "
+          f"K1/K2 by dtype {by_dtype}, plain calls on cuda {plain}, state "
+          f"bit-equal across ranks after each step "
+          f"{result['ranks_equal']}", flush=True)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def multirank_path() -> dict:
+    """Phase 13 (a), (b): two ranks of ``multirank_worker`` share the card
+    through gloo; every rank's launches and the checks of rank 0."""
+    from rspnet_tpu_torch.parallel.launch import free_port
+    port = free_port()
+    with tempfile.TemporaryDirectory() as out:
+        procs = []
+        for rank in range(P13_RANKS):
+            env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(port), WORLD_SIZE=str(P13_RANKS),
+                       RANK=str(rank), LOCAL_RANK="0")
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--multirank",
+                 out], env=env))
+        try:
+            t_end = time.monotonic() + P13_TIMEOUT_S
+            while any(p.poll() is None for p in procs):
+                require(time.monotonic() < t_end,
+                        f"phase 13 ranks ran past {P13_TIMEOUT_S} s")
+                require(all(p.poll() in (None, 0) for p in procs),
+                        f"a phase 13 rank failed: "
+                        f"{[p.poll() for p in procs]}")
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        require(all(p.returncode == 0 for p in procs),
+                f"a phase 13 rank failed: {[p.returncode for p in procs]}")
+        ranks = []
+        for rank in range(P13_RANKS):
+            with open(os.path.join(out, f"rank{rank}.json")) as f:
+                ranks.append(json.load(f))
+    want = {"max_pool3d_fwd": 26 * 3, "max_pool3d_bwd": 13 * 3,
+            "color_augment": 2 * 3}
+    for r in ranks:
+        require(r["launches"] == want,
+                f"phase 13 rank {r['rank']} launches {r['launches']}, not "
+                f"{want}")
+        require(not any(n for key, n in r["by_dtype"].items()
+                        if not key.endswith(".bfloat16")),
+                f"phase 13: K1/K2 launched off bf16: {r['by_dtype']}")
+        require(not any(r["plain"].values()),
+                f"phase 13: plain versions ran on CUDA tensors: "
+                f"{r['plain']}")
+        require(all(r["ranks_equal"]),
+                f"phase 13: ranks differ after a bf16 step: "
+                f"{r['ranks_equal']}")
+    return {"ranks": ranks}
+
+
+def _p13_timed_steps(q, k, bn_group, profile: bool = False) -> dict:
+    """3 bf16 steps of one process at the per-rank batch, the BNs' moments
+    over ``bn_group`` (None: cuDNN's BN): step ms and peak GiB; with
+    ``profile`` a 4th step traced (its device time by kernel group)."""
+    import torch
+    from rspnet_tpu_torch.models.common import set_bn_process_group
+    from rspnet_tpu_torch.moco import train_step
+    state, mcfg, _ = _p13_state(torch.bfloat16)
+    set_bn_process_group(state.model_q, bn_group)
+    set_bn_process_group(state.model_k, bn_group)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = train_step(state, q, k, mcfg, generator=gen)["loss"]
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0) * 1000.0)
+        require(math.isfinite(float(loss)),
+                f"phase 13 (c) loss {float(loss)} is not finite")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if profile:
+        from torch.profiler import ProfilerActivity
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts,
+                                    record_shapes=True) as prof:
+            t0 = time.perf_counter()
+            train_step(state, q, k, mcfg, generator=gen)
+            torch.cuda.synchronize()
+        print(f"profile of one step, BN moments over "
+              f"{'the group' if bn_group is not None else 'cuDNN'}:",
+              flush=True)
+        report_profile(prof, time.perf_counter() - t0)
+    del state
+    torch.cuda.empty_cache()
+    return {"steps_ms": steps, "peak_gib": peak}
+
+
+def nccl_world1_path(profile: bool = False) -> dict:
+    """Phase 13 (c): one NCCL group of one rank; one bf16 step of the 1-D
+    layout through it (every collective on the card) equals the step with
+    no group bit for bit (cuDNN's deterministic algorithms in both). Then
+    the cross-replica BN's cost a rank: 3 steps with the BNs' moments over
+    that group (its kernels and all-reduces, no other rank to wait for)
+    beside 3 with cuDNN's BN, one process at the per-rank batch."""
+    import torch
+    import torch.distributed as dist
+    from rspnet_tpu_torch.moco import data_parallel_layout, train_step
+    from rspnet_tpu_torch.parallel.launch import free_port
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(4)
+    shape = (P13_BATCH, 32, 224, 224, 3)
+    q = torch.randn(shape, generator=g, device="cuda")
+    k = torch.randn(shape, generator=g, device="cuda")
+    perm = torch.randperm(P13_BATCH, generator=g, device="cuda")
+    alone = _p13_timed_steps(q, k, None, profile)
+    deterministic = torch.backends.cudnn.deterministic
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        torch.backends.cudnn.deterministic = True
+        digests = []
+        for layout in (None, data_parallel_layout(dist.group.WORLD)):
+            state, mcfg, _ = _p13_state(torch.bfloat16)
+            train_step(state, q, k, mcfg, perm=perm, speed_index=0,
+                       layout=layout)
+            torch.cuda.synchronize()
+            digests.append(_p13_digest(state))
+            del state
+            torch.cuda.empty_cache()
+        torch.backends.cudnn.deterministic = deterministic
+        backend = dist.get_backend()
+        synced = _p13_timed_steps(q, k, dist.group.WORLD, profile)
+    finally:
+        dist.destroy_process_group()
+        torch.backends.cudnn.deterministic = deterministic
+    print(f"multi-rank NCCL world 1 ({backend}): one bf16 step, batch "
+          f"{P13_BATCH}, equal to the step without a group: "
+          f"{digests[0] == digests[1]}", flush=True)
+    print(f"one process, batch {P13_BATCH}, 3 bf16 steps: cuDNN's BN step "
+          f"ms {[round(t, 1) for t in alone['steps_ms']]}, peak "
+          f"{alone['peak_gib']:.2f} GiB; the cross-replica BN over the "
+          f"NCCL group of one step ms "
+          f"{[round(t, 1) for t in synced['steps_ms']]}, peak "
+          f"{synced['peak_gib']:.2f} GiB", flush=True)
+    require(backend == "nccl" and digests[0] == digests[1],
+            "phase 13 (c): the NCCL world-1 step differs from the step "
+            "without a group")
+    return {"equal": True, "alone": alone, "cross_replica_bn": synced}
+
+
 def report_profile(prof, wall_s: float) -> None:
     """Device time of the main-path run by kernel group and the top
     kernels (all 3 steps, the first one's warm-up included)."""
@@ -1656,15 +2118,20 @@ def report_profile(prof, wall_s: float) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="trace the pretrain and finetune paths with "
+                    help="trace the pretrain and finetune paths (and a "
+                         "step of phase 13 (c) each way) with "
                          "torch.profiler and print their device time by "
                          "kernel group")
+    ap.add_argument("--multirank", metavar="OUT_DIR",
+                    help=argparse.SUPPRESS)   # one rank of phase 13
     args = ap.parse_args(argv)
 
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.multirank:
+        return multirank_worker(args.multirank)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     os.chdir(os.path.dirname(os.path.abspath(__file__)))
     from rspnet_tpu_torch.ops import _build
@@ -1690,6 +2157,7 @@ def main(argv=None) -> int:
     err_color = max(
         check_color(dev, 8, COLOR_CLIP),
         check_color(dev, MAIN_BATCH, COLOR_CLIP),
+        check_color(dev, P13_BATCH, COLOR_CLIP),      # phase 13's clips
         *(check_color(dev, b, clip) for b, clip in RAGGED_COLOR),
         check_color(dev, *LARGE_COLOR, resident=False),
         check_color(dev, 8, COLOR_CLIP, resident=False,
@@ -1758,6 +2226,10 @@ def main(argv=None) -> int:
     pool_zoo["s3dg_speed2"] = time_pool(dev, MAIN_BATCH, "bfloat16",
                                         sites=S2_POOL_SITES)
     blur = time_blur(dev, MAIN_BATCH // 2, P12_PACKED, 224)
+    # phase 13's shapes a rank: K1/K2 bf16 at the q batch (K1 at the fused
+    # key batch is the main path's 64), K3 on the rank's clips
+    pool_zoo["multirank"] = time_pool(dev, P13_BATCH, "bfloat16")
+    color_zoo["multirank"] = time_color(dev, P13_BATCH, 32, 224)
 
     with tempfile.TemporaryDirectory() as exp:
         trained = main_path(MAIN_BATCH, os.path.join(exp, "train"),  # 4
@@ -1826,6 +2298,11 @@ def main(argv=None) -> int:
             os.path.join(exp, "aug_plus_validate"),
             leg12["checkpoint"])["launches"]
         torch.cuda.empty_cache()
+    gc.collect()                                                      # 13
+    torch.cuda.empty_cache()
+    multirank = multirank_path()
+    nccl_world1_path(args.profile)
+    torch.cuda.empty_cache()
     launches, launches_ft = trained["launches"], finetuned["launches"]
     print(f"blur: {json.dumps(blur)}", flush=True)
 
@@ -1842,6 +2319,11 @@ def main(argv=None) -> int:
                             f"bound_by_{site}": tot["by"][key],
                             f"library_ms_{site}": tot[f"{key}_lib"]})
         return out
+
+    def rank_keys(name):
+        """The kernel's launches on each rank of phase 13's bf16 steps."""
+        return {f"launches_multirank_rank{r['rank']}": r["launches"][name]
+                for r in multirank["ranks"]}
 
     def pool_row(name, key, replaces, err):
         # the main path's dtype (bf16) first, the f32 times beside it
@@ -1863,7 +2345,7 @@ def main(argv=None) -> int:
                 "bound_ms_finetune": pool_ft[f"{key}_bound"],
                 "bound_by_finetune": pool_ft["by"][key],
                 "library_ms_finetune": pool_ft[f"{key}_lib"],
-                **path_keys(name, key)}
+                **path_keys(name, key), **rank_keys(name)}
 
     kernels = [
         pool_row("max_pool3d_fwd", "fwd", "rspnet_tpu/ops/pallas_pool.py:152",
@@ -1882,6 +2364,7 @@ def main(argv=None) -> int:
          color_ft["plain_ms"], "bound_ms_finetune": color_ft["bound_ms"],
          "bound_by_finetune": color_ft["bound_by"],
          "library_ms_finetune": None, **path_keys("color_augment", None),
+         **rank_keys("color_augment"),
          **{f"{k}_{arch}_pretrain": v for arch, c in color_zoo.items()
             for k, v in c.items()},
          **{f"library_ms_{arch}_pretrain": None for arch in color_zoo}},

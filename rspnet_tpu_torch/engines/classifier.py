@@ -1,5 +1,11 @@
-"""Supervised classification steps on one card (port of
-rspnet_tpu/engines/classifier.py, ``axis_name=None``).
+"""Supervised classification steps (port of
+rspnet_tpu/engines/classifier.py).
+
+``group`` is the data-parallel group (None: one process, no collective):
+the train step averages the gradients, the loss and the metrics over it
+(classifier.py:92-94, :109-110); the eval step sums its sums over it and
+gathers the logits in rank order (:156-162). Dropout masks differ by rank
+through the engine's generator (seed + 1 + rank, :58-61).
 
 Multi-crop clips arrive time-concatenated ``[B, n_crop*T, S, S, C]``; the
 steps fold the crops into the batch axis and average the logits over
@@ -36,6 +42,8 @@ from torch import nn
 
 from ..framework.metrics import accuracy, masked_topk_correct
 from ..models.common import mean_dim as _mean
+from ..parallel import (all_gather_rows, all_reduce_mean, all_reduce_sum,
+                        combine_grads)
 
 # top-level module names of classifier heads (classifier.py:37-43)
 FC_NAMES = ("fc", "linear", "head", "new_fc")
@@ -82,12 +90,13 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                clips: torch.Tensor, labels: torch.Tensor, *,
                n_crop: int = 1, only_train_fc: bool = False,
                dropout_mask: Optional[torch.Tensor] = None,
-               generator: Optional[torch.Generator] = None
-               ) -> Dict[str, torch.Tensor]:
+               generator: Optional[torch.Generator] = None,
+               group=None) -> Dict[str, torch.Tensor]:
     """One SGD step on the cross entropy; returns loss, acc1, acc5 (device
-    tensors; top-k clamped at the number of classes). A model with a
-    dropout head (S3D-G's ``1stream`` classifier) keeps ``dropout_mask``,
-    or draws its mask from ``generator``."""
+    tensors; top-k clamped at the number of classes), averaged over
+    ``group``. A model with a dropout head (S3D-G's ``1stream``
+    classifier) keeps ``dropout_mask``, or draws its mask from
+    ``generator``."""
     if only_train_fc:
         freeze_backbone(model)
     model.train(not only_train_fc)      # the linear probe pins BN to eval
@@ -99,19 +108,30 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     optimizer.zero_grad(set_to_none=True)
     if loss.requires_grad:
         loss.backward()
+        if group is not None:
+            combine_grads(model.parameters(), group,
+                          torch.distributed.get_world_size(group))
         optimizer.step()
     logits = logits.detach()
     acc1, acc5 = accuracy(logits, labels, topk=(1, 5))
-    return {"loss": loss.detach(), "acc1": acc1, "acc5": acc5}
+    metrics = [loss.detach(), acc1, acc5]
+    if group is not None:
+        metrics = all_reduce_mean(torch.stack(
+            [m.to(torch.promote_types(m.dtype, torch.float32))
+             for m in metrics]), group).unbind()
+    return dict(zip(("loss", "acc1", "acc5"), metrics))
 
 
 @torch.no_grad()
 def eval_step(model: nn.Module, clips: torch.Tensor, labels: torch.Tensor,
-              mask: torch.Tensor, *, n_crop: int = 1
-              ) -> Dict[str, torch.Tensor]:
+              mask: torch.Tensor, *, n_crop: int = 1, group=None,
+              return_logits: bool = False) -> Dict[str, torch.Tensor]:
     """Eval-mode forward; the masked SUMS loss_sum, correct1, correct5 and
-    count (classifier.py:118-165), so the host aggregates exactly over
-    padded validation tails. The model's mode comes back as it was."""
+    count (classifier.py:118-165), summed over ``group``, so the host
+    aggregates exactly over padded validation tails; ``return_logits``
+    adds the logits of every rank in rank order, as the JAX
+    ``make_eval_step(return_logits=True)`` does (no engine reads them).
+    The model's mode comes back as it was."""
     was_training = model.training
     model.eval()
     try:
@@ -121,5 +141,14 @@ def eval_step(model: nn.Module, clips: torch.Tensor, labels: torch.Tensor,
     per_sample = cross_entropy(logits, labels)
     maskf = mask.to(torch.float32)
     correct1, correct5 = masked_topk_correct(logits, labels, mask, (1, 5))
-    return {"loss_sum": (per_sample * maskf).sum(), "correct1": correct1,
+    sums = {"loss_sum": (per_sample * maskf).sum(), "correct1": correct1,
             "correct5": correct5, "count": maskf.sum()}
+    if group is not None:
+        keys = list(sums)
+        sums = dict(zip(keys, all_reduce_sum(torch.stack(
+            [sums[k].to(torch.promote_types(sums[k].dtype, torch.float32))
+             for k in keys]), group).unbind()))
+    if return_logits:
+        sums["logits"] = (logits if group is None
+                          else all_gather_rows(logits, group))
+    return sums

@@ -27,8 +27,19 @@ reads them; this engine reads the JAX package's files the same way.
 ``fc``), ``1stream`` the backbone with its own classifier; S3D-G's dropout
 draws its masks from the engine's ``torch.Generator`` (seed + 1).
 
-Not ported yet (each raises NotImplementedError): more than one card,
-``cache_device`` and the 2-D ``parallel:`` layout.
+More than one card (``--ws N``, rspnet_tpu/engines/finetune.py:62-126):
+the 1-D data mesh; each rank trains on its rows of the global batch
+(``batch_multiplier = world``), the gradients, the loss and the metrics
+averaged over the group, every ``BatchNorm`` with cross-replica moments
+(precise-BN included). The lr is not scaled with the world, as in the
+JAX engine. Validation shards each global batch over the ranks and sums
+the masked sums, so the padded tail of the last batch counts nowhere
+(:313-330). Each rank draws its augment parameters from seed + rank and
+its dropout masks from seed + 1 + rank; ``--mc`` and every checkpoint
+load on every rank; rank 0 alone writes checkpoints and TensorBoard.
+
+Not ported yet (each raises NotImplementedError): ``cache_device`` and
+the 2-D ``parallel:`` layout (the JAX engine builds a 1-D mesh).
 """
 from __future__ import annotations
 
@@ -46,10 +57,12 @@ from ..framework.logging import summary_writer
 from ..framework.lr_schedule import (build_optimizer, build_scheduler,
                                      set_opt_lr)
 from ..models import get_model_class
+from ..models.common import set_bn_process_group
 from ..models.convert import load_variables, state_dict_to_variables
 from ..moco import MultiTaskWrapper
 from ..ops.augment import (augment_batch, center_crop_params, eval_preprocess,
                            sample_train_params)
+from ..parallel import barrier, mesh_for_args
 from . import classifier
 from .normalization import dataset_normalization
 from .pretrain import resolve_device
@@ -85,8 +98,6 @@ def _unsupported(cfg: ConfigTree, args) -> None:
     def nope(what):
         raise NotImplementedError(f"{what} is not ported yet (see ROADMAP.md)")
 
-    if int(getattr(args, "world_size", 1)) > 1:
-        nope("training on more than one card (--ws > 1)")
     if cfg.get("parallel", None) is not None:
         nope("the 2-D `parallel:` layout")
     if cfg.get("cache_device", False) not in (False, None):
@@ -109,15 +120,21 @@ class FinetuneEngine:
         logger.info("Device %s; compute dtype %s", self.device,
                     self.dtype or torch.float32)
 
+        # the 1-D data mesh (one process: no group, no collective)
+        self.mesh = mesh_for_args(args)
+        self.group = self.mesh.group
+        self.world_size = self.mesh.size
+        rank = self.mesh.rank
         seed = cfg.get_int("seed", 0)
         torch.manual_seed(seed)
         model, self.model_type = build_classifier_model(cfg, self.dtype)
         self.model = model.to(self.device,
                               memory_format=torch.channels_last_3d)
+        set_bn_process_group(self.model, self.group)
         self.arch = cfg.get_string("model.arch")
-        # S3D-G's 1stream dropout masks
+        # S3D-G's 1stream dropout masks, this rank's
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed + 1)
+        self.generator.manual_seed(seed + 1 + rank)
         # the linear probe: the train step freezes the backbone
         self.only_train_fc = cfg.get_bool("only_train_fc", False)
         if self.only_train_fc and not any(
@@ -144,9 +161,12 @@ class FinetuneEngine:
             eta_min=self.learning_rate / 1000.0)
 
         if not final_validate:
-            self.train_loader = build_loader(cfg, "train", debug=self.debug)
-        self.validate_loader = build_loader(cfg, "val",
-                                            final_validate=final_validate)
+            self.train_loader = build_loader(
+                cfg, "train", debug=self.debug,
+                batch_multiplier=self.world_size)
+        self.validate_loader = build_loader(
+            cfg, "val", final_validate=final_validate,
+            batch_multiplier=self.world_size)
 
         tt = cfg.get_config("temporal_transforms")
         self.n_crop = (tt.get_int("validate.final_n_crop") if final_validate
@@ -158,9 +178,10 @@ class FinetuneEngine:
         self.log_interval = cfg.get_int("log_interval", 10)
         self.best_acc1 = 0.0
         self.current_epoch = 0
-        self.rng = np.random.default_rng(seed)
+        self.rng = np.random.default_rng(seed + rank)
         self.writer = None
-        if args.experiment_dir is not None and not final_validate:
+        if (args.experiment_dir is not None and not final_validate
+                and rank == 0):
             self.writer = summary_writer(args.experiment_dir)
 
         st = cfg.get_config("spatial_transforms")
@@ -304,7 +325,8 @@ class FinetuneEngine:
             labels = torch.from_numpy(batch["labels"]).to(self.device)
             metrics = classifier.train_step(
                 self.model, self.optimizer, clips, labels,
-                only_train_fc=self.only_train_fc, generator=self.generator)
+                only_train_fc=self.only_train_fc, generator=self.generator,
+                group=self.group)
             spool.append(torch.stack([metrics[k].float()
                                       for k in TRAIN_KEYS]),
                          n=batch["labels"].shape[0])
@@ -338,7 +360,7 @@ class FinetuneEngine:
             labels = torch.from_numpy(batch["labels"]).to(self.device)
             mask = torch.from_numpy(batch["mask"]).to(self.device)
             sums = classifier.eval_step(self.model, clips, labels, mask,
-                                        n_crop=self.n_crop)
+                                        n_crop=self.n_crop, group=self.group)
             spool.append(torch.stack([sums[k].float() for k in SUM_KEYS]))
             if self.debug and i >= 2:
                 break
@@ -384,6 +406,10 @@ class FinetuneEngine:
             self.writer = None
 
     def save_checkpoint(self, epoch: int, is_best: bool) -> None:
+        """Rank 0 writes; the other ranks wait for the file."""
+        if self.mesh.rank != 0:
+            barrier()
+            return
         variables = state_dict_to_variables(self.model.state_dict(),
                                             self.arch)
         self.checkpoint_manager.save({
@@ -395,3 +421,4 @@ class FinetuneEngine:
             "optimizer": self.optimizer.state_dict(),
             "scheduler": self.scheduler.state_dict(),
         }, is_best, epoch)
+        barrier()

@@ -8,14 +8,17 @@ each BN's running statistics are reset and its ``momentum`` set to None,
 so that torch keeps a cumulative average; the batches run in train mode
 under ``no_grad``; the momenta, the modes and the batch counters come back
 afterwards. The result is the mean of the batch means and of the unbiased
-batch variances, what ``recalibrate_batch_stats`` computes (:59).
+batch variances, what ``recalibrate_batch_stats`` computes (:59). Under
+more than one rank each BN takes its batch moments over its process group
+(``BatchNorm.process_group``), so every rank ends with the statistics of
+the global batches, as ``make_stats_fn``'s cross-replica forward gives
+them (:38-46).
 
 Deviations from the JAX package, each stated (ROADMAP.md §3, F6):
 - a BN that no calibration forward runs keeps its statistics; the JAX
   package divides its never-updated leaf to mean 0 and var 0 (:79);
-- ``SubBatchNorm`` (per-replica statistics, :55) and a multi-process
-  group raise ``NotImplementedError``: neither arises on one card with
-  S3D-G;
+- ``SubBatchNorm`` (per-replica statistics, :55) raises
+  ``NotImplementedError`` (F6);
 - the batch iterable is closed when recalibration ends, also when it
   raises, so a loader generator does not stay suspended
   (rspnet_tpu/engines/finetune.py:240); on a failure every BN gets its
@@ -35,11 +38,6 @@ def _check_supported(model: nn.Module) -> None:
             raise NotImplementedError(
                 "precise-BN over SubBatchNorm (per-replica statistics) is "
                 "not ported (see ROADMAP.md)")
-    import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            "precise-BN across processes is not ported (see ROADMAP.md)")
 
 
 def recalibrate_bn_stats(model: nn.Module,

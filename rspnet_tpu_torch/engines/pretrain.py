@@ -33,8 +33,18 @@ and the checkpoints stay f32; K3's output is f32 and the stem conv casts
 it. TF32 is off for the f32 matmuls and convolutions that remain, and bf16
 GEMMs reduce in f32; all three flags are set explicitly and logged.
 
-Not ported yet (each raises NotImplementedError): more than one card,
-``parallel:`` 2-D layouts and ``cache_device``.
+More than one card (``--ws N``, rspnet_tpu/engines/pretrain.py:48-77):
+each rank trains on its rows of the global batch (batch x world, the
+loader built with ``batch_multiplier = world`` yields rows [rB, (r+1)B),
+F1); the lr scales with the world; K is trimmed to a multiple of the
+global batch x M; every ``BatchNorm`` takes its moments over the group;
+the step takes the mesh's layout (``moco.layout_for``: 1-D, or the 2-D
+``parallel: {data, model}`` layout with the K-sharded queue). Each rank
+draws its augment parameters from seed + rank and its permutations from
+seed + 1 + rank; the queue is rank 0's. Rank 0 alone writes the
+checkpoint (the dense queue) and TensorBoard; the others wait for it.
+
+Not ported yet (raises NotImplementedError): ``cache_device``.
 """
 from __future__ import annotations
 
@@ -51,9 +61,12 @@ from ..framework.checkpoint import load_optimizer_state
 from ..framework.environment import scale_learning_rate
 from ..framework.logging import summary_writer
 from ..framework.lr_schedule import build_optimizer, build_scheduler, set_opt_lr
+from ..models.common import set_bn_process_group
 from ..models.convert import load_variables, state_dict_to_variables
-from ..moco import (METRIC_KEYS, build_moco_model, eval_step, init_moco_state,
-                    speed_branch_config, train_step)
+from ..moco import (METRIC_KEYS, build_moco_model, eval_step,
+                    gather_queue_2d, init_moco_state, layout_for,
+                    shard_queue_2d, speed_branch_config, train_step)
+from ..parallel import barrier, broadcast_, mesh_for_config
 from ..ops.augment import augment_batch, sample_train_params
 from ..utils.moco import replace_moco_k_in_config
 from .normalization import dataset_normalization
@@ -75,15 +88,9 @@ def resolve_device(name: str) -> torch.device:
 
 
 def _unsupported(cfg: ConfigTree, args) -> None:
-    def nope(what):
-        raise NotImplementedError(f"{what} is not ported yet (see ROADMAP.md)")
-
-    if int(getattr(args, "world_size", 1)) > 1:
-        nope("training on more than one card (--ws > 1)")
-    if cfg.get("parallel", None) is not None:
-        nope("the 2-D `parallel:` layout")
     if cfg.get("cache_device", False) not in (False, None):
-        nope("cache_device")
+        raise NotImplementedError(
+            "cache_device is not ported yet (see ROADMAP.md)")
 
 
 class PretrainEngine:
@@ -106,8 +113,20 @@ class PretrainEngine:
             torch.backends.cudnn.allow_tf32,
             torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction)
 
+        # the 1-D data mesh, or the 2-D one of a `parallel:` block; one
+        # process has no group and takes no collective
+        self.mesh = mesh_for_config(cfg, args)
+        self.world_size = self.mesh.size
+        self.layout = layout_for(self.mesh)
+        rank = self.mesh.rank
+        if self.world_size > 1:
+            logger.info("Mesh: rank %d of %s", rank, self.mesh.shape)
+        # global batch = per-rank batch x ranks (the batch shards over both
+        # axes of a 2-D mesh)
         self.batch_size = cfg.get_int("batch_size")
-        replace_moco_k_in_config(cfg, self.batch_size)
+        self.global_batch = self.batch_size * self.world_size
+        replace_moco_k_in_config(cfg, self.global_batch,
+                                 model_parallel=self.mesh.model)
         seed = cfg.get_int("seed", 0)
         torch.manual_seed(seed)
         model, self.moco_cfg = build_moco_model(cfg, dtype=self.dtype)
@@ -116,7 +135,7 @@ class PretrainEngine:
 
         lr = cfg.get_float("optimizer.lr")
         if not getattr(args, "no_scale_lr", False):
-            lr = scale_learning_rate(lr, 1, self.batch_size)
+            lr = scale_learning_rate(lr, self.world_size, self.batch_size)
             logger.info("Scaled lr: %f", lr)
         self.num_epochs = cfg.get_int("num_epochs")
         self.scheduler = build_scheduler(
@@ -130,13 +149,22 @@ class PretrainEngine:
                                     model.parameters(), lr)
 
         self.train_loader = build_loader(cfg, "train", vid=True,
-                                         debug=self.debug)
+                                         debug=self.debug,
+                                         batch_multiplier=self.world_size)
         self.size = cfg.get_int("spatial_transforms.size")
 
+        # the permutation of each rank's rows
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed + 1)
+        self.generator.manual_seed(seed + 1 + rank)
         self.state = init_moco_state(model, self.moco_cfg, optimizer,
                                      self.generator)
+        if self.mesh.group is not None:
+            # after the key encoder's deep copy (a group does not copy)
+            set_bn_process_group(self.state.model_q, self.mesh.group)
+            set_bn_process_group(self.state.model_k, self.mesh.group)
+            broadcast_(self.state.queue, self.mesh.group)
+        if self.mesh.is_2d:
+            self.state.queue = shard_queue_2d(self.state.queue, self.mesh)
 
         self.checkpoint_manager = CheckpointManager(
             args.experiment_dir,
@@ -145,14 +173,17 @@ class PretrainEngine:
         self.log_interval = cfg.get_int("log_interval", 10)
         self.best_loss = float("inf")
         self.current_epoch = 1
-        self.rng = np.random.default_rng(seed)
+        # this rank's augment parameters
+        self.rng = np.random.default_rng(seed + rank)
         # exact multi-speed: the speed of each step, from a stream of its
-        # own (the JAX engine's draw, rspnet_tpu/engines/pretrain.py:121)
+        # own, the same on every rank (the JAX engine's draw,
+        # rspnet_tpu/engines/pretrain.py:121)
         self.speed_rng = np.random.default_rng(seed + 0x5BEE)
         # the speed of each step of this run
         self.speeds = []
         self.writer = (summary_writer(args.experiment_dir)
-                       if args.experiment_dir is not None else None)
+                       if args.experiment_dir is not None and rank == 0
+                       else None)
         self.aug_plus = cfg.get_bool("moco.aug_plus", False)
         # dataset.mean/std; debug disables normalization in the VID
         # pipeline (reference :152-162)
@@ -219,11 +250,12 @@ class PretrainEngine:
             clip_k = self._augment_clip(batch["clips"][1])
             metrics = train_step(self.state, clip_q, clip_k,
                                  self._step_config(),
-                                 generator=self.generator)
+                                 generator=self.generator,
+                                 layout=self.layout)
             rows.append(torch.stack([metrics[k] for k in METRIC_KEYS]))
             self._sync()
             self.step_times.append((time.perf_counter() - t0) * 1000.0)
-            samples += batch["labels"].shape[0]
+            samples += batch["labels"].shape[0] * self.world_size
             if i % self.log_interval == 0:
                 vals = rows[-1].tolist()
                 logger.info(
@@ -259,7 +291,8 @@ class PretrainEngine:
             clip_k = self._augment_clip(batch["clips"][1])
             metrics = eval_step(self.state, clip_q, clip_k,
                                 self._step_config(),
-                                generator=self.generator)
+                                generator=self.generator,
+                                layout=self.layout)
             rows.append(torch.stack([metrics[k] for k in METRIC_KEYS]))
             sizes.append(batch["labels"].shape[0])
             if self.debug and i >= 2:
@@ -296,8 +329,15 @@ class PretrainEngine:
         """The JAX engine's layout (rspnet_tpu/engines/pretrain.py:388-402):
         both encoders as JAX ``params``/``batch_stats`` trees, the queue
         and its pointer; ``step`` beside them (the JAX package reads past
-        it); the torch optimizer state under ``optimizer``."""
+        it); the torch optimizer state under ``optimizer``. Every rank takes
+        part (the 2-D queue is gathered dense); rank 0 writes."""
         s = self.state
+        queue = s.queue
+        if self.mesh.is_2d:
+            queue = gather_queue_2d(queue, self.mesh)
+        if self.mesh.rank != 0:
+            barrier()
+            return
         q = state_dict_to_variables(s.model_q.state_dict(), self.arch)
         k = state_dict_to_variables(s.model_k.state_dict(), self.arch)
         state = {
@@ -308,7 +348,7 @@ class PretrainEngine:
                 "params_k": k["params"],
                 "batch_stats_q": q["batch_stats"],
                 "batch_stats_k": k["batch_stats"],
-                "queue": s.queue.detach().cpu(),
+                "queue": queue.detach().cpu(),
                 "queue_ptr": np.asarray(s.queue_ptr, np.int32),
                 "step": np.asarray(s.step, np.int64),
             },
@@ -317,6 +357,7 @@ class PretrainEngine:
             "scheduler": self.scheduler.state_dict(),
         }
         self.checkpoint_manager.save(state, is_best, epoch)
+        barrier()
 
     def load_checkpoint(self, path, model_only: bool = False) -> None:
         """Either package's pretrain checkpoint; a full resume needs this
@@ -339,7 +380,10 @@ class PretrainEngine:
             for mod in model.modules():
                 if isinstance(mod, torch.nn.modules.batchnorm._BatchNorm):
                     mod.num_batches_tracked.fill_(s.step)
-        s.queue.copy_(torch.as_tensor(np.asarray(m["queue"])))
+        queue = torch.as_tensor(np.asarray(m["queue"]))
+        if self.mesh.is_2d:    # a dense queue, sharded over K
+            queue = shard_queue_2d(queue, self.mesh)
+        s.queue.copy_(queue)
         s.queue_ptr = int(m["queue_ptr"])
         if not model_only:
             self.scheduler.load_state_dict(ckpt["scheduler"])

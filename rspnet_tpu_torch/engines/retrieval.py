@@ -31,8 +31,16 @@ exactly.
 encoder, ``1stream`` those of the bare backbone (its classifier unused),
 as the JAX engine's ``method="features"`` does (retrieval.py:93).
 
-Not ported yet (each raises NotImplementedError): more than one card,
-``cache_device`` and the 2-D ``parallel:`` layout.
+More than one card (``--ws N``): each rank extracts its rows of every
+global batch (``batch_multiplier = world``), and the features, the masks
+and the labels come back to every rank through ``fetch_global`` in rank
+order (retrieval.py:160-171), so R@k is the same on every rank; rank 0
+writes the files. The train split's crop boxes are drawn for the whole
+global batch on every rank and each takes its rows, so a run's boxes do
+not depend on the number of ranks (the JAX engine's one-process mesh).
+
+Not ported yet (each raises NotImplementedError): ``cache_device`` and
+the 2-D ``parallel:`` layout.
 """
 from __future__ import annotations
 
@@ -51,6 +59,7 @@ from ..models.common import global_avg_pool
 from ..models.convert import load_variables
 from ..moco import MultiTaskWrapper
 from ..ops.augment import _sample_crop_box, center_crop_params, eval_preprocess
+from ..parallel import fetch_global, mesh_for_args
 from .classifier import _mean
 from .finetune import _unsupported, build_classifier_model
 from .normalization import dataset_normalization
@@ -118,6 +127,7 @@ class RetrievalEngine:
         self._crop_rng = np.random.default_rng(
             getattr(args, "seed", None) or 0)
 
+        self.mesh = mesh_for_args(args)
         torch.manual_seed(cfg.get_int("seed", 0))
         model, self.model_type = build_classifier_model(cfg, self.dtype)
         self.model = model.to(self.device,
@@ -125,8 +135,11 @@ class RetrievalEngine:
         self.arch = cfg.get_string("model.arch")
 
         # EvenNCrop(final_n_crop) on both splits (force_n_crop)
-        self.train_loader = build_loader(cfg, "train", final_validate=True)
-        self.test_loader = build_loader(cfg, "val", final_validate=True)
+        world = self.mesh.size
+        self.train_loader = build_loader(cfg, "train", final_validate=True,
+                                         batch_multiplier=world)
+        self.test_loader = build_loader(cfg, "val", final_validate=True,
+                                        batch_multiplier=world)
         tt = cfg.get_config("temporal_transforms")
         self.n_crop = tt.get_int("validate.final_n_crop", 10)
         self.size = cfg.get_int("spatial_transforms.size")
@@ -152,13 +165,15 @@ class RetrievalEngine:
                        self.arch)
 
     def _boxes(self, loader, B: int, H: int, W: int) -> np.ndarray:
-        """Crop boxes of one batch (retrieval.py:143-161)."""
+        """Crop boxes of this rank's B rows (retrieval.py:143-161)."""
         if not getattr(loader.cfg, "device_geometry", False):
             return np.array([[0, 0, H, W]] * B, np.float32)
         if loader.cfg.train:
-            return np.stack([np.asarray(
+            boxes = np.stack([np.asarray(
                 _sample_crop_box(self._crop_rng, H, W, loader.cfg.crop_area),
-                np.float32) for _ in range(B)])
+                np.float32) for _ in range(B * self.mesh.size)])
+            r = self.mesh.rank
+            return boxes[r * B:(r + 1) * B]
         return center_crop_params(B, [(H, W)]).boxes
 
     def extract_features(self, loader, name: str):
@@ -178,12 +193,13 @@ class RetrievalEngine:
                     self._boxes(loader, B, H, W),
                     size=(self.size, self.size), mean=mean, std=std)
                 f = crop_features(self.model, clips, self.n_crop)
-                f = f.float().cpu().numpy()
+                # every rank's rows, on every rank
+                f = fetch_global(f.float(), self.mesh)
                 self.batch_times.append(
                     (time.perf_counter() - t_batch) * 1000.0)
-                mask = batch["mask"]
+                mask = fetch_global(batch["mask"], self.mesh)
                 feats.append(f[mask])
-                labels.append(batch["labels"][mask])
+                labels.append(fetch_global(batch["labels"], self.mesh)[mask])
                 if self.debug and i >= 2:
                     break
         finally:
@@ -212,11 +228,12 @@ class RetrievalEngine:
     def run(self) -> dict:
         train_f, train_l = self.extract_features(self.train_loader, "train")
         test_f, test_l = self.extract_features(self.test_loader, "test")
-        out_dir = Path(self.args.run_dir)
-        self.save_features(out_dir, train_f, train_l, "train")
-        self.save_features(out_dir, test_f, test_l, "test")
         results = topk_retrieval(train_f, train_l, test_f, test_l)
-        with open(out_dir / "topk_correct.json", "w") as f:
-            json.dump(results, f, indent=2)
+        if self.mesh.rank == 0:
+            out_dir = Path(self.args.run_dir)
+            self.save_features(out_dir, train_f, train_l, "train")
+            self.save_features(out_dir, test_f, test_l, "test")
+            with open(out_dir / "topk_correct.json", "w") as f:
+                json.dump(results, f, indent=2)
         logger.info("Retrieval: %s", results)
         return results

@@ -120,6 +120,10 @@ class VisualizationEngine:
         self.args = args
         self.debug = bool(getattr(args, "debug", False))
         _unsupported(cfg, args)
+        if int(getattr(args, "world_size", 1)) > 1:
+            raise NotImplementedError(
+                "CAM visualization on more than one card (--ws > 1) is not "
+                "ported (see ROADMAP.md)")
         if cfg.get_string("moco.fc_type", "linear") != "linear":
             raise NotImplementedError(
                 "CAM visualization requires linear heads (reference "

@@ -1,5 +1,6 @@
-"""Finetune CLI of the port: supervised training of a classifier on one card
-(mirrors the root finetune.py).
+"""Finetune CLI of the port: supervised training of a classifier (mirrors
+the root finetune.py); ``--ws N`` runs N data-parallel ranks (as the
+pretrain CLI) and returns None.
 
     python -m rspnet_tpu_torch.finetune \
         -c config/finetune/ucf101_s3dg.jsonnet -e EXPDIR [-x EXT ...] [-d] \
@@ -22,6 +23,9 @@ logger = logging.getLogger(__name__)
 def main(argv=None):
     """Train and validate; returns (the training engine, or None under
     ``--validate``; the final validation's metrics)."""
+    from rspnet_tpu_torch.parallel import launch
+    if launch("rspnet_tpu_torch.finetune", argv):   # --ws N: the N ranks ran
+        return None
     from rspnet_tpu_torch.framework import bootstrap
     args, cfg = bootstrap(argv)
 

@@ -145,8 +145,11 @@ class Args(BaseArgs):
         parser.add_argument("--seed", type=int, help="random seed")
         parser.add_argument("--ws", "--world-size", dest="world_size",
                             type=int, default=1,
-                            help="total data-parallel replicas (1 card "
-                                 "only in this port so far)")
+                            help="data-parallel ranks: one process per "
+                                 "card on cuda (capped at the cards), "
+                                 "gloo ranks on cpu; inside a group that "
+                                 "the environment describes (WORLD_SIZE, "
+                                 "RANK, ...) the process joins it")
         parser.add_argument("--device", choices=("cuda", "cpu"),
                             default="cuda",
                             help="device to train on; cuda raises when no "

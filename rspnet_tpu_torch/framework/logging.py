@@ -44,9 +44,14 @@ def set_logging_basic_config(
     run_dir: Optional[Path] = None,
     debug: bool = False,
     filename: str = "experiment.log",
+    level: Optional[int] = None,
 ) -> None:
+    """stderr, and ``run_dir/filename`` when a run dir is given; ``level``
+    overrides DEBUG (``debug``) or INFO (the other ranks of a group log
+    warnings only)."""
     fmt = "%(asctime)s|%(levelname)-8s|%(message)s"
-    level = logging.DEBUG if debug else logging.INFO
+    if level is None:
+        level = logging.DEBUG if debug else logging.INFO
 
     handlers = [TqdmHandler()]
     if run_dir is not None:

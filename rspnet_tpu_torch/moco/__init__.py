@@ -1,8 +1,11 @@
 """SSL task layer: MoCo with dual pretext heads (A-VID + RSP)."""
-from .step import (METRIC_KEYS, MoCoConfig, MoCoState, diff_speed_gather,
-                   eval_step, init_moco_state, momentum_update,
-                   packed_frame_subset, queue_update, speed_branch_config,
-                   speed_index_sets, train_step)
+from .sharded_queue import (data_model_layout, gather_queue_2d, layout_for,
+                            shard_queue_2d)
+from .step import (METRIC_KEYS, SINGLE, MoCoConfig, MoCoState, StepLayout,
+                   data_parallel_layout, diff_speed_gather, eval_step,
+                   init_moco_state, momentum_update, packed_frame_subset,
+                   queue_update, speed_branch_config, speed_index_sets,
+                   train_step)
 from .wrapper import MultiTaskWrapper
 
 
@@ -40,6 +43,9 @@ def build_moco_model(cfg, dtype=None):
 
 
 __all__ = ["MultiTaskWrapper", "MoCoConfig", "MoCoState", "METRIC_KEYS",
-           "build_moco_model", "init_moco_state", "train_step", "eval_step",
-           "momentum_update", "queue_update", "diff_speed_gather",
-           "packed_frame_subset", "speed_branch_config", "speed_index_sets"]
+           "SINGLE", "StepLayout", "build_moco_model", "data_model_layout",
+           "data_parallel_layout", "diff_speed_gather", "eval_step",
+           "gather_queue_2d", "init_moco_state", "layout_for",
+           "momentum_update", "packed_frame_subset", "queue_update",
+           "shard_queue_2d", "speed_branch_config", "speed_index_sets",
+           "train_step"]

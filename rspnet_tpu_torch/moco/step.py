@@ -24,12 +24,27 @@ in each branch, so the branches share one ``MoCoState``. Packed frames
 (``packed_frames``): the loader ships only the positions of
 ``packed_frame_subset`` and the gather addresses them through
 ``searchsorted``.
+
+Layouts (port of rspnet_tpu/moco/step_core.py:240-265 ``StepLayout``): the
+step body is written once and a ``StepLayout`` injects only the
+collectives: the A-VID loss and its accuracies, the loss scale, the
+gradient combine, the key gather before the enqueue, the enqueue and the
+metric mean. ``SINGLE`` (one process) takes none; ``data_parallel_layout``
+is the 1-D mesh (builder.py:103-133), ``moco/sharded_queue.py`` the 2-D
+one with the K-sharded queue. Each rank draws its own permutation (the
+engine seeds its generator with seed + 1 + rank); the fused 2B key pass
+takes its BN moments over the whole group (``BatchNorm.process_group``,
+F2). The gradient mean is an explicit ``all_reduce`` of one flat buffer
+after ``backward``, not DDP: DDP would rename the parameters under
+``module.`` (the checkpoints keep the reference's names), broadcast the
+buffers every forward and need ``find_unused_parameters`` for the branch
+heads, and JAX's ``pmean`` is that one reduction.
 """
 from __future__ import annotations
 
 import copy
 from dataclasses import dataclass, replace
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +52,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..framework.metrics import accuracy
+from ..parallel import all_gather_rows, all_reduce_mean, combine_grads
 from .wrapper import MultiTaskWrapper
 
 METRIC_KEYS = ["loss", "loss_A", "loss_M", "acc1_A", "acc5_A",
@@ -212,34 +228,15 @@ def avid_loss_dense(q_a, k_a, k_neg_a, queue, cfg: MoCoConfig):
     return loss, (logits1, logits2)
 
 
-def moco_objective(q_a, q_m, k_a, k_m, k_neg_a, k_neg_m, queue,
-                   cfg: MoCoConfig):
-    """The A-VID + margin-ranking loss and the step's metrics
-    (step_core.py:332-370). The RSP logits and their loss stay in the heads'
-    dtype (bf16 sums, as in JAX); the total loss is the promotion of both
-    terms. Metrics are 0-d tensors in the loss's dtype (percent for
-    accuracies)."""
-    loss_a, (logits1, logits2) = avid_loss_dense(q_a, k_a, k_neg_a, queue,
-                                                 cfg)
-    # JAX applies a Python constant to a bf16 array as a bf16 value (a weak
-    # type): t, the margin and lambda_M are rounded to the heads' dtype
-    t, margin, lambda_m = (q_m.new_full((), v) for v in
-                           (cfg.t, cfg.margin, cfg.loss_lambda_m))
-    l_pos_m = torch.sum(q_m * k_m, dim=1, keepdim=True) / t
-    l_neg_m = torch.sum(q_m * k_neg_m, dim=1, keepdim=True) / t
-    loss_m = torch.clamp(margin - (l_pos_m - l_neg_m), min=0.0).mean()
-    loss = cfg.loss_lambda_a * loss_a + lambda_m * loss_m
-    with torch.no_grad():
-        labels = torch.zeros(q_a.shape[0], dtype=torch.long,
-                             device=q_a.device)
-        acc1_a, acc5_a = accuracy(logits1, labels, topk=(1, 5))
-        acc1_an, acc5_an = accuracy(logits2, labels, topk=(1, 5))
-        acc_m = (l_pos_m > l_neg_m).to(loss.dtype).mean() * 100.0
-        metrics = {"loss": loss, "loss_A": loss_a, "loss_M": loss_m,
-                   "acc1_A": acc1_a, "acc5_A": acc5_a, "acc1_A_n": acc1_an,
-                   "acc5_A_n": acc5_an, "acc1_M": acc_m}
-        metrics = {k: v.detach().to(loss.dtype) for k, v in metrics.items()}
-    return loss, metrics
+def avid_metrics_dense(aux, cfg: MoCoConfig) -> Dict[str, torch.Tensor]:
+    """Top-1/5 of the positive in both dense logit rows (builder.py:87)."""
+    logits1, logits2 = aux
+    labels = torch.zeros(logits1.shape[0], dtype=torch.long,
+                         device=logits1.device)
+    acc1_a, acc5_a = accuracy(logits1, labels, topk=(1, 5))
+    acc1_an, acc5_an = accuracy(logits2, labels, topk=(1, 5))
+    return {"acc1_A": acc1_a, "acc5_A": acc5_a, "acc1_A_n": acc1_an,
+            "acc5_A_n": acc5_an}
 
 
 @torch.no_grad()
@@ -257,12 +254,88 @@ def queue_update(queue: torch.Tensor, queue_ptr: int,
     return (queue_ptr + batch) % queue.shape[1]
 
 
+@dataclass(frozen=True)
+class StepLayout:
+    """The collectives a layout injects into the step body
+    (step_core.py:240-265):
+
+    avid_loss(q_a, k_a, k_neg_a, queue, cfg) -> (loss_a, aux): the A-VID
+        cross entropy summed over both positives;
+    avid_metrics(aux, cfg) -> acc{1,5}_A, acc{1,5}_A_n;
+    loss_scale: multiplies the differentiated loss (1/M in 2-D);
+    grad_combine(parameters): the gradient mean over the mesh;
+    gather_keys(k_neg_a): the local keys -> the global batch of keys;
+    queue_update(queue, ptr, keys) -> ptr: the ring enqueue;
+    metrics_combine(metrics): the metric mean over the mesh.
+    """
+    avid_loss: Callable = avid_loss_dense
+    avid_metrics: Callable = avid_metrics_dense
+    loss_scale: float = 1.0
+    grad_combine: Callable = lambda params: None
+    gather_keys: Callable = lambda keys: keys
+    queue_update: Callable = queue_update
+    metrics_combine: Callable = lambda metrics: metrics
+
+
+def moco_objective(q_a, q_m, k_a, k_m, k_neg_a, k_neg_m, queue,
+                   cfg: MoCoConfig, layout: Optional[StepLayout] = None):
+    """The A-VID + margin-ranking loss and the step's metrics
+    (step_core.py:332-370). The RSP logits and their loss stay in the heads'
+    dtype (bf16 sums, as in JAX); the total loss is the promotion of both
+    terms. Metrics are 0-d tensors in the loss's dtype (percent for
+    accuracies), this rank's (``layout.metrics_combine`` averages them)."""
+    layout = layout or SINGLE
+    loss_a, aux = layout.avid_loss(q_a, k_a, k_neg_a, queue, cfg)
+    # JAX applies a Python constant to a bf16 array as a bf16 value (a weak
+    # type): t, the margin and lambda_M are rounded to the heads' dtype
+    t, margin, lambda_m = (q_m.new_full((), v) for v in
+                           (cfg.t, cfg.margin, cfg.loss_lambda_m))
+    l_pos_m = torch.sum(q_m * k_m, dim=1, keepdim=True) / t
+    l_neg_m = torch.sum(q_m * k_neg_m, dim=1, keepdim=True) / t
+    loss_m = torch.clamp(margin - (l_pos_m - l_neg_m), min=0.0).mean()
+    loss = cfg.loss_lambda_a * loss_a + lambda_m * loss_m
+    with torch.no_grad():
+        acc_m = (l_pos_m > l_neg_m).to(loss.dtype).mean() * 100.0
+        metrics = {"loss": loss, "loss_A": loss_a, "loss_M": loss_m,
+                   **layout.avid_metrics(aux, cfg), "acc1_M": acc_m}
+        metrics = {k: v.detach().to(loss.dtype) for k, v in metrics.items()}
+    return loss, metrics
+
+
+# one process: no collective
+SINGLE = StepLayout()
+
+
+def _metrics_mean(group):
+    def combine(metrics):
+        keys = list(metrics)
+        row = all_reduce_mean(torch.stack([metrics[k] for k in keys]), group)
+        return dict(zip(keys, row.unbind()))
+    return combine
+
+
+def data_parallel_layout(group) -> StepLayout:
+    """The 1-D data-parallel collectives over ``group`` (builder.py:103):
+    the gradient and metric means, the keys gathered in rank order (F3:
+    the global batch of keys, so K must divide by it). A group of one rank
+    still takes each collective."""
+    n = torch.distributed.get_world_size(group)
+    return StepLayout(
+        grad_combine=lambda params: combine_grads(params, group, n),
+        gather_keys=lambda keys: all_gather_rows(keys, group),
+        metrics_combine=_metrics_mean(group))
+
+
 def train_step(state: MoCoState, im_q: torch.Tensor, im_k: torch.Tensor,
                cfg: MoCoConfig, *, generator: Optional[torch.Generator] = None,
                perm: Optional[torch.Tensor] = None,
-               speed_index: Optional[int] = None) -> Dict[str, torch.Tensor]:
-    """One step on NDHWC clips [B, T, H, W, 3]; updates ``state`` in place
-    and returns the metrics (``moco_objective``)."""
+               speed_index: Optional[int] = None,
+               layout: Optional[StepLayout] = None
+               ) -> Dict[str, torch.Tensor]:
+    """One step on NDHWC clips [B, T, H, W, 3] (this rank's rows of the
+    global batch under a layout); updates ``state`` in place and returns
+    the metrics (``moco_objective``), averaged over the mesh."""
+    layout = layout or SINGLE
     model_q, model_k = state.model_q, state.model_k
     model_q.train()
     model_k.train()
@@ -281,24 +354,30 @@ def train_step(state: MoCoState, im_q: torch.Tensor, im_k: torch.Tensor,
     # 4. query pass + loss
     q_a, q_m = model_q(q_real)
     loss, metrics = moco_objective(q_a, q_m, k_a, k_m, k_neg_a, k_neg_m,
-                                   state.queue, cfg)
+                                   state.queue, cfg, layout)
 
-    # 5. backward + SGD
+    # 5. backward, the mesh-wide gradient combine, SGD
     state.optimizer.zero_grad(set_to_none=True)
+    if layout.loss_scale != 1.0:
+        loss = loss * layout.loss_scale
     loss.backward()
+    layout.grad_combine(model_q.parameters())
     state.optimizer.step()
 
-    # 6. enqueue the negative keys (reference enqueues k_neg_A, :544)
-    state.queue_ptr = queue_update(state.queue, state.queue_ptr, k_neg_a)
+    # 6. enqueue the global batch of negative keys (reference enqueues
+    #    k_neg_A, :544)
+    state.queue_ptr = layout.queue_update(state.queue, state.queue_ptr,
+                                          layout.gather_keys(k_neg_a))
     state.step += 1
-    return metrics
+    return layout.metrics_combine(metrics)
 
 
 @torch.no_grad()
 def eval_step(state: MoCoState, im_q: torch.Tensor, im_k: torch.Tensor,
               cfg: MoCoConfig, *, perm: Optional[torch.Tensor] = None,
               speed_index: Optional[int] = None,
-              generator: Optional[torch.Generator] = None
+              generator: Optional[torch.Generator] = None,
+              layout: Optional[StepLayout] = None
               ) -> Dict[str, torch.Tensor]:
     """The train step's metrics without training (``--validate``; port of
     step_core.py:383 make_eval_body). Both encoders run in eval mode (BN
@@ -316,9 +395,10 @@ def eval_step(state: MoCoState, im_q: torch.Tensor, im_k: torch.Tensor,
         b = k_real.shape[0]
         k2_a, k2_m = model_k(torch.cat([k_real, k_neg], dim=0))
         q_a, q_m = model_q(q_real)
+        layout = layout or SINGLE
         _, metrics = moco_objective(q_a, q_m, k2_a[:b], k2_m[:b], k2_a[b:],
-                                    k2_m[b:], state.queue, cfg)
-        return metrics
+                                    k2_m[b:], state.queue, cfg, layout)
+        return layout.metrics_combine(metrics)
     finally:
         model_q.train(modes[0])
         model_k.train(modes[1])

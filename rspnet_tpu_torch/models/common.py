@@ -18,6 +18,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import max_pool3d as _pool
+from ..parallel.collectives import (all_gather_rows, all_reduce_mean,
+                                    all_reduce_sum)
 
 IntOr3 = Union[int, Tuple[int, int, int]]
 
@@ -37,15 +39,123 @@ class BatchNorm(nn.BatchNorm3d):
     The statistics are taken in (at least) f32 whatever the input's dtype,
     and the output is cast to ``dtype`` (or stays in the input's), as there
     (:79-80, :106).
+
+    Cross-replica moments (``process_group``, set by
+    ``set_bn_process_group``; the shuffle-BN replacement, :89-92): in
+    training over a group, the batch moments are those of every rank's
+    batch, and the running variance takes the Bessel factor of n x world
+    elements, as the JAX module's ``axis_name`` does. On a CPU tensor E[x]
+    and E[x^2] are averaged over the group with one ``all_reduce`` of [2C]
+    values and the variance is E[x^2] - E[x]^2, the JAX module's formula.
+    On a CUDA tensor ``_SyncBatchNorm`` takes them with torch's CUDA
+    batch-norm kernels, those of ``nn.SyncBatchNorm``'s function: a
+    bf16 input is read in place with f32 statistics, where the CPU formula
+    keeps f32 copies of it for autograd. ``convert_sync_batchnorm`` is not
+    used: it would replace this class (its f32 statistics and output cast),
+    and its function gathers with ``all_gather``, which gloo lacks for
+    CUDA tensors. The engines set a group only when more than one rank
+    runs.
     """
 
     def __init__(self, num_features: int, flax_momentum: float = 0.9,
                  eps: float = 1e-5, dtype: Optional[torch.dtype] = None):
         super().__init__(num_features, eps=eps, momentum=1.0 - flax_momentum)
         self.dtype = dtype
+        self.process_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x).to(self.dtype or x.dtype)
+        if self.training and self.process_group is not None:
+            y = self._cross_replica(x, self.process_group)
+        else:
+            y = super().forward(x)
+        return y.to(self.dtype or x.dtype)
+
+    def _cross_replica(self, x: torch.Tensor, group) -> torch.Tensor:
+        with torch.no_grad():
+            self.num_batches_tracked.add_(1)
+        momentum = (1.0 / float(self.num_batches_tracked)
+                    if self.momentum is None else self.momentum)
+        if x.is_cuda:
+            return _SyncBatchNorm.apply(x, self.weight, self.bias,
+                                        self.running_mean, self.running_var,
+                                        self.eps, momentum, group)
+        c = x.shape[1]
+        xf = x.to(torch.promote_types(torch.float32, x.dtype))
+        dims = [0] + list(range(2, x.dim()))
+        moments = all_reduce_mean(
+            torch.cat([xf.mean(dims), (xf * xf).mean(dims)]), group)
+        mean, mean2 = moments[:c], moments[c:]
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        shape = (1, c) + (1,) * (x.dim() - 2)
+        with torch.no_grad():
+            n = x.numel() // c * torch.distributed.get_world_size(group)
+            self.running_mean.mul_(1 - momentum).add_(
+                momentum * mean.detach().to(self.running_mean.dtype))
+            self.running_var.mul_(1 - momentum).add_(
+                momentum * (var.detach() * (n / max(n - 1, 1))).to(
+                    self.running_var.dtype))
+        y = (xf - mean.view(shape)) * torch.rsqrt(var + self.eps).view(shape)
+        return (y * self.weight.to(y.dtype).view(shape)
+                + self.bias.to(y.dtype).view(shape))
+
+
+def _memory_format(x: torch.Tensor) -> torch.memory_format:
+    return (torch.channels_last_3d
+            if x.is_contiguous(memory_format=torch.channels_last_3d)
+            else torch.contiguous_format)
+
+
+class _SyncBatchNorm(torch.autograd.Function):
+    """Cross-replica BN on CUDA tensors: torch.nn.modules._functions
+    .SyncBatchNorm with its ``all_gather`` of each rank's (mean, invstd,
+    count) taken as ``all_gather_rows`` (an ``all_reduce``, which gloo has
+    for CUDA tensors). The statistics are the input's accumulation type
+    (f32 for bf16); the output is in the input's dtype. The weight and
+    bias gradients stay this rank's: the step's gradient mean combines
+    them."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, running_mean, running_var, eps,
+                momentum, group):
+        x = x.contiguous(memory_format=_memory_format(x))
+        c = x.shape[1]
+        mean, invstd = torch.batch_norm_stats(x, eps)
+        count = mean.new_full((1,), x.numel() // c)
+        every = all_gather_rows(torch.cat([mean, invstd, count])[None],
+                                group)
+        counts = every[:, 2 * c]
+        mean, invstd = torch.batch_norm_gather_stats_with_counts(
+            x, every[:, :c], every[:, c:2 * c], running_mean, running_var,
+            momentum, eps, counts.to(running_mean.dtype))
+        ctx.save_for_backward(x, weight, mean, invstd,
+                              counts.to(torch.int32))
+        ctx.group = group
+        return torch.batch_norm_elemt(x, weight, bias, mean, invstd, eps)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight, mean, invstd, counts = ctx.saved_tensors
+        grad = grad.contiguous(memory_format=_memory_format(x))
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        sum_dy, sum_dy_xmu, grad_w, grad_b = torch.batch_norm_backward_reduce(
+            grad, x, mean, invstd, weight, need_x, need_w, need_b)
+        grad_x = None
+        if need_x:
+            c = sum_dy.shape[0]
+            sums = all_reduce_sum(torch.cat([sum_dy, sum_dy_xmu]), ctx.group)
+            grad_x = torch.batch_norm_backward_elemt(
+                grad, x, mean, invstd, weight, sums[:c], sums[c:], counts)
+        return (grad_x, grad_w if need_w else None,
+                grad_b if need_b else None, None, None, None, None, None)
+
+
+def set_bn_process_group(model: nn.Module, group) -> None:
+    """Every ``BatchNorm`` of ``model`` takes its training moments over
+    ``group`` (None: this process alone). ``SubBatchNorm`` stays
+    per-replica, as in the JAX package."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.process_group = group
 
 
 def conv3d(conv: nn.Conv3d, x: torch.Tensor,

@@ -1,5 +1,6 @@
-"""Retrieval CLI of the port: frozen-feature video retrieval on one card
-(mirrors the root retrieval.py).
+"""Retrieval CLI of the port: frozen-feature video retrieval (mirrors the
+root retrieval.py); ``--ws N`` extracts on N ranks (as the pretrain CLI)
+and returns None.
 
     python -m rspnet_tpu_torch.retrieval \
         -c config/retrieval/ucf101_c3d.jsonnet -e EXPDIR [-x EXT ...] [-d] \
@@ -21,6 +22,9 @@ logger = logging.getLogger(__name__)
 
 def main(argv=None):
     """-> (the engine, the recalls)"""
+    from rspnet_tpu_torch.parallel import launch
+    if launch("rspnet_tpu_torch.retrieval", argv):   # --ws N: the N ranks ran
+        return None
     from rspnet_tpu_torch.framework import bootstrap
     args, cfg = bootstrap(argv)
 

@@ -2,7 +2,7 @@
 
 ``python -m rspnet_tpu_torch.pretrain --device cpu -d`` on a tiny synthetic
 S3D-G config, in both geometries; the checkpoint it writes resumes; the
-default device (cuda) raises without a card; unported options raise;
+default device (cuda) raises without a card; ``cache_device`` raises;
 ``--validate`` runs one statistics epoch and writes no checkpoint.
 """
 import subprocess
@@ -64,18 +64,11 @@ def test_cuda_without_card_raises(monkeypatch):
         resolve_device("cuda")
 
 
-@pytest.mark.parametrize("extra", [
-    ", cache_device: true", ", parallel: {data: 1, model: 2}"])
+@pytest.mark.parametrize("extra", [", cache_device: true"])
 def test_unported_options_raise(tmp_path, monkeypatch, extra):
     monkeypatch.chdir(REPO_ROOT)
     with pytest.raises(NotImplementedError):
         pretrain.main(_argv(tmp_path, extra))
-
-
-def test_multi_card_raises(tmp_path, monkeypatch):
-    monkeypatch.chdir(REPO_ROOT)
-    with pytest.raises(NotImplementedError):
-        pretrain.main(_argv(tmp_path / "a", "", "--ws", "2"))
 
 
 def test_validate_runs(tmp_path):
