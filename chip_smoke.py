@@ -143,6 +143,23 @@ Phases, each printing its own lines:
      4 runs the CLI with ``--ws 1``: no group, no collective. Phases 2/3
      hold K1/K2 bit-equal at the per-rank q batch (32, bf16) and K3 to
      its plain version on its clips, and time them.
+ 14. the device-resident dataset cache (``cache_device``,
+     rspnet_tpu_torch/data/device_cache.py) and the native decoder, run
+     after phase 12 while phases 4-9's checkpoints exist: (a) phase 4's
+     run with ``cache_device: true``: the 256 synthetic samples cached on
+     the card (two uint8 clips of 32 x 128 x 171 each, ``P14_BYTES``), the
+     build timed, 3 bf16 steps with the launches of phase 4 (K1 26, K2 13,
+     K3 2 a step, all bf16) and no clip copied from the host; (b) every
+     cached sample bit-equal to the uncached loader's clip, and a batch of
+     epoch 1 equal to the rows its order names; (c) phase 6's finetune,
+     phase 8's ResNet-18 retrieval and phase 9's CAM run with
+     ``cache_device: true``: the launches of their uncached runs, no clip
+     copied, retrieval's test features equal to phase 8's bit for bit;
+     (d) the native FFmpeg decoder builds with g++ (or its build error is
+     printed: the loader decodes with OpenCV then); when built, an MJPG
+     that the ffmpeg program writes decodes bit-equal across two calls,
+     and within 2 levels of OpenCV where OpenCV exists. The cached runs'
+     launches join the JSON line.
 Then one JSON line with the kernels, the card line again, and the result
 line ``{"ok": true, "device": {...}}`` last. Any failure exits non-zero
 before the result line. Imports nothing of JAX or of rspnet_tpu.
@@ -341,6 +358,10 @@ P13_TIMEOUT_S = 600
 P13_TOL = {"update_rel_l2": 0.1, "bn_stats_rel": 1e-3,
            "key_params_rel": 1e-6, "queue_abs": 1e-3, "loss_rel": 1e-3,
            "acc_abs": 100.0 / P13_GLOBAL}
+# phase 14: the synthetic dataset's 256 samples cached at decode
+# resolution, two uint8 clips of 32 frames of 128 x 171 each
+P14_SAMPLES = 256
+P14_BYTES = P14_SAMPLES * 2 * 32 * 128 * 171 * 3
 
 
 class SmokeError(RuntimeError):
@@ -1417,7 +1438,8 @@ def retrieval_path(arch: str, exp: str, pretrained: str) -> dict:
             f"retrieval launched K1 off bf16: {by_dtype}")
     require(not any(plain.values()),
             f"plain versions ran on CUDA tensors: {plain}")
-    return {"launches": counts, "batch_ms": batch_ms, "peak_gib": peak}
+    return {"launches": counts, "batch_ms": batch_ms, "peak_gib": peak,
+            "run_dir": run_dir}
 
 
 # ---------------------------------------------------------------------------
@@ -2068,6 +2090,297 @@ def nccl_world1_path(profile: bool = False) -> dict:
     return {"equal": True, "alone": alone, "cross_replica_bn": synced}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the device-resident dataset cache and the native decoder
+# ---------------------------------------------------------------------------
+
+def _host_copies() -> dict:
+    from rspnet_tpu_torch.data import device_cache
+    return dict(device_cache.host_copies)
+
+
+def _copies_since(before: dict) -> dict:
+    now = _host_copies()
+    return {k: now[k] - before[k] for k in now}
+
+
+def cached_pretrain_path(exp: str, uncached: dict) -> dict:
+    """Phase 14 (a): phase 4's run with ``cache_device: true``: the 256
+    synthetic samples cached on the card at epoch 0, 3 bf16 steps served
+    from there; per step K1 26, K2 13, K3 2, all bf16, as phase 4; no clip
+    copied from the host after the build."""
+    import torch
+    from rspnet_tpu_torch import pretrain
+    from rspnet_tpu_torch.data.device_cache import DeviceCachedLoader
+
+    argv = _main_argv(exp, fields="cache_device: true")
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    before = _host_copies()
+    t0 = time.perf_counter()
+    engine = pretrain.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, by_dtype, plain = _read_counters()
+    # the build copies the cache itself (not through clip_to_device): any
+    # copy counted here is a step's
+    copies = _copies_since(before)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    loader = engine.train_loader
+    require(isinstance(loader, DeviceCachedLoader),
+            f"phase 14: the loader is a {type(loader).__name__}")
+    steps, loss = engine.step_times, engine.meters["loss"].avg
+    devices = sorted({str(c.device) for c in loader._cache})
+    print(f"cached pretrain: batch {MAIN_BATCH}, compute dtype "
+          f"{engine.dtype}, {loader.num_samples} samples cached on "
+          f"{devices}, {loader.nbytes} bytes (expected {P14_BYTES}), built "
+          f"in {loader.build_s:.2f} s, {len(steps)} steps, step ms "
+          f"{[round(t, 1) for t in steps]} (phase 4, uncached: "
+          f"{[round(t, 1) for t in uncached['steps_ms']]}), wall {wall:.1f} "
+          f"s, peak memory {peak:.2f} GiB (phase 4: "
+          f"{uncached['peak_gib']:.2f}), loss {loss:.4f}, launches {counts} "
+          f"(phase 4: {uncached['launches']}), K1/K2 launches by dtype "
+          f"{by_dtype}, plain calls on cuda {plain}, host-to-device clip "
+          f"copies in the steps {copies}", flush=True)
+    require(math.isfinite(loss), f"phase 14 loss {loss} is not finite")
+    require(len(steps) == 3, f"phase 14 ran {len(steps)} steps, not 3")
+    require(engine.dtype == torch.bfloat16, f"phase 14: {engine.dtype}")
+    require(devices == ["cuda:0"], f"phase 14 cache on {devices}")
+    require(loader.nbytes == P14_BYTES,
+            f"phase 14 cached {loader.nbytes} bytes, not {P14_BYTES}")
+    require(counts == uncached["launches"],
+            f"phase 14 launches {counts}, phase 4's {uncached['launches']}")
+    require(not any(n for key, n in by_dtype.items()
+                    if not key.endswith(".bfloat16")),
+            f"K1/K2 launched off bf16 in phase 14: {by_dtype}")
+    require(not any(plain.values()),
+            f"plain versions ran on CUDA tensors: {plain}")
+    require(copies == {"calls": 0, "bytes": 0},
+            f"phase 14 copied clips from the host: {copies}")
+    return {"engine": engine, "launches": counts, "steps_ms": steps,
+            "peak_gib": peak, "bytes": loader.nbytes,
+            "build_s": loader.build_s}
+
+
+def check_cache_exact(engine) -> None:
+    """Phase 14 (b): every cached sample bit-equal to the uncached loader's
+    clip (the loader the cache wraps, iterated anew at epoch 0), and one
+    batch of the cache's iteration equal to the rows its order names."""
+    import numpy as np
+    import torch
+
+    loader = engine.train_loader
+    inner, B = loader._inner, loader.cfg.batch_size
+    inner.set_epoch(0)
+    equal = total = 0
+    for b, batch in enumerate(inner):
+        for c, clip in enumerate(batch["clips"]):
+            rows = loader._cache[c][b * B:(b + 1) * B]
+            want = torch.from_numpy(clip).to(rows.device)
+            equal += sum(bool(torch.equal(rows[i], want[i]))
+                         for i in range(len(rows)))
+            total += len(rows)
+        require(np.array_equal(loader._labels[b * B:(b + 1) * B],
+                               batch["labels"]), "phase 14 labels differ")
+    loader.set_epoch(1)
+    first = next(iter(loader))
+    order = loader._epoch_order()[:B]
+    served = all(torch.equal(first["clips"][c],
+                             loader._cache[c][torch.from_numpy(order).cuda()])
+                 for c in range(len(loader._cache)))
+    print(f"cached clips bit-equal to the uncached loader's: {equal} of "
+          f"{total} (sample, clip) pairs; an epoch-1 batch equal to the rows "
+          f"of its order: {served}", flush=True)
+    require(total == P14_SAMPLES * 2 and equal == total,
+            f"phase 14: {total - equal} of {total} cached clips differ")
+    require(served, "phase 14: a cached batch is not its order's rows")
+
+
+def cached_finetune_path(exp: str, pretrained: str, uncached: dict) -> dict:
+    """Phase 14 (c): phase 6's finetune with ``cache_device: true`` (both
+    splits cached): the launches of phase 6, no clip copied."""
+    import torch
+    from rspnet_tpu_torch import finetune
+    from rspnet_tpu_torch.data.device_cache import DeviceCachedLoader
+
+    ext = ('{dataset+: {name: "synthetic", num_samples: 12, '
+           'val_num_samples: 4}, device_geometry: true, bn_recalibrate: 1, '
+           'cache_device: true}')
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    before = _host_copies()
+    engine, final = finetune.main(_finetune_argv(exp, "--mc", pretrained,
+                                                 ext=ext))
+    torch.cuda.synchronize()
+    counts, by_dtype, plain = _read_counters()
+    copies = _copies_since(before)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = engine.step_times
+    cached = [isinstance(ld, DeviceCachedLoader)
+              for ld in (engine.train_loader, engine.validate_loader)]
+    print(f"cached finetune: step ms {[round(t, 1) for t in steps]} (phase "
+          f"6: {[round(t, 1) for t in uncached['steps_ms']]}), peak memory "
+          f"{peak:.2f} GiB (phase 6: {uncached['peak_gib']:.2f}), final "
+          f"validation { {k: round(v, 4) for k, v in final.items()} }, "
+          f"train and val splits cached {cached}, launches {counts} (phase "
+          f"6: {uncached['launches']}), K1/K2 launches by dtype {by_dtype}, "
+          f"host-to-device clip copies {copies}", flush=True)
+    require(all(cached), f"phase 14 finetune caches {cached}")
+    require(len(steps) == 3 and math.isfinite(final["loss"]),
+            f"phase 14 finetune: {len(steps)} steps, {final}")
+    require(counts == uncached["launches"],
+            f"phase 14 finetune launches {counts}")
+    require(not any(n for key, n in by_dtype.items()
+                    if not key.endswith(".bfloat16")),
+            f"phase 14 finetune K1/K2 off bf16: {by_dtype}")
+    require(not any(plain.values()), f"plain calls on cuda: {plain}")
+    require(copies["calls"] == 0, f"phase 14 finetune copied {copies}")
+    return {"launches": counts, "steps_ms": steps, "peak_gib": peak}
+
+
+def cached_retrieval_path(exp: str, pretrained: str, uncached: dict) -> dict:
+    """Phase 14 (c): phase 8's ResNet-18 retrieval with ``cache_device:
+    true``: the launches of phase 8, the test split's features equal to
+    phase 8's bit for bit, no clip copied."""
+    import numpy as np
+    import torch
+    from rspnet_tpu_torch import retrieval
+
+    ext = ('{dataset+: {name: "synthetic", num_samples: %d, '
+           'val_num_samples: %d}, device_geometry: true, cache_device: '
+           'true}' % (RET_CLIPS, RET_CLIPS))
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    before = _host_copies()
+    engine, results = retrieval.main(
+        ["-c", "config/retrieval/ucf101_resnet18.jsonnet", "-e", exp, "-x",
+         ext, "-d", "--seed", "0", "--device", "cuda", "--mc", pretrained])
+    torch.cuda.synchronize()
+    counts, by_dtype, plain = _read_counters()
+    copies = _copies_since(before)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    run_dir = engine.args.run_dir
+    same = {n: bool(np.array_equal(np.load(run_dir / n),
+                                   np.load(uncached["run_dir"] / n)))
+            for n in ("test_fold1_feats.npy", "test_fold1_labels.npy")}
+    builds = [round(ld.build_s, 2) for ld in (engine.train_loader,
+                                              engine.test_loader)]
+    print(f"cached retrieval resnet18: caches built in {builds} s, batch ms "
+          f"{[round(t, 1) for t in engine.batch_times]} (phase 8: "
+          f"{[round(t, 1) for t in uncached['batch_ms']]}), peak memory "
+          f"{peak:.2f} GiB (phase 8: {uncached['peak_gib']:.2f}), test "
+          f"split equal to phase 8's {same}, recalls {results}, launches "
+          f"{counts} (phase 8: {uncached['launches']}), K1/K2 launches by "
+          f"dtype {by_dtype}, host-to-device clip copies {copies}",
+          flush=True)
+    require(all(same.values()), f"phase 14 retrieval test split: {same}")
+    require(counts == uncached["launches"],
+            f"phase 14 retrieval launches {counts}")
+    require(by_dtype["max_pool3d_fwd.float32"] == 0,
+            f"phase 14 retrieval K1 off bf16: {by_dtype}")
+    require(not any(plain.values()), f"plain calls on cuda: {plain}")
+    require(copies["calls"] == 0, f"phase 14 retrieval copied {copies}")
+    return {"launches": counts, "batch_ms": engine.batch_times,
+            "peak_gib": peak}
+
+
+def cached_visualization_path(exp: str, pretrained: str,
+                              uncached: dict) -> dict:
+    """Phase 14 (c): phase 9's CAM run with ``cache_device: true`` (16
+    samples cached, one batch of 8): the launches of phase 9's run, its
+    32 PNGs, no clip copied."""
+    import torch
+    from rspnet_tpu_torch import visualization
+
+    ext = ('{dataset+: {name: "synthetic", num_samples: 16}, batch_size: '
+           '%d, device_geometry: true, cache_device: true}' % VIS_BATCH)
+    _reset_counters()
+    before = _host_copies()
+    engine = visualization.main(
+        ["-c", "config/pretrain/s3dg.jsonnet", "-e", exp, "-x", ext, "-d",
+         "--seed", "0", "--device", "cuda", "--mc", pretrained])
+    torch.cuda.synchronize()
+    counts, by_dtype, plain = _read_counters()
+    copies = _copies_since(before)
+    pngs = sorted((engine.args.run_dir / "cam").iterdir())
+    print(f"cached visualization: {len(pngs)} PNGs, launches {counts} "
+          f"(phase 9: {uncached['launches']}), K1/K2 launches by dtype "
+          f"{by_dtype}, host-to-device clip copies {copies}", flush=True)
+    require(len(pngs) == 4 * VIS_BATCH and all(
+        png_size(p) == (engine.size, 8 * engine.size) for p in pngs),
+        "phase 14 CAM strips")
+    require(counts == uncached["launches"],
+            f"phase 14 visualization launches {counts}")
+    require(not any(plain.values()), f"plain calls on cuda: {plain}")
+    require(copies["calls"] == 0, f"phase 14 visualization copied {copies}")
+    return {"launches": counts}
+
+
+def _write_test_video(path: str, frames: int, w: int, h: int) -> bool:
+    """An MJPG video of a moving ramp, written by the ffmpeg program;
+    False where there is none."""
+    import shutil
+    import numpy as np
+    if shutil.which("ffmpeg") is None:
+        return False
+    ramp = np.zeros((h, w, 3), np.uint8)
+    ramp[..., 1] = np.arange(w, dtype=np.uint8)[None] * 2
+    raw = b"".join(np.roll(ramp, 3 * t, axis=1).tobytes()
+                   for t in range(frames))
+    subprocess.run(["ffmpeg", "-loglevel", "error", "-y", "-f", "rawvideo",
+                    "-pix_fmt", "rgb24", "-s", f"{w}x{h}", "-r", "25", "-i",
+                    "-", "-c:v", "mjpeg", path], input=raw, check=True,
+                   timeout=60)
+    return True
+
+
+def native_decoder_check(exp: str) -> dict:
+    """Phase 14 (d): the native FFmpeg decoder builds (or its build error
+    is printed: the loader then decodes with OpenCV); when built, an MJPG
+    written by the ffmpeg program decodes bit-equal across two calls, and
+    within the JAX package's limits of OpenCV where OpenCV exists."""
+    import numpy as np
+    from rspnet_tpu_torch.native import video_decode
+
+    t0 = time.perf_counter()
+    built = video_decode.is_available()
+    build_s = time.perf_counter() - t0
+    print(f"native decoder: built {built}, {video_decode.library_path()}, "
+          f"{build_s:.1f} s" + ("" if built else
+                                 f", build error: {video_decode.build_error}"),
+          flush=True)
+    if not built:
+        return {"built": False}
+    path = os.path.join(exp, "ramp.avi")
+    if not _write_test_video(path, 40, 170, 96):
+        print("native decoder: no ffmpeg program to write a test video",
+              flush=True)
+        return {"built": True}
+    idx = [0, 17, 39, 5, 60]
+    with video_decode.RspVideoReader(path) as r:
+        first, again = r.get_batch(idx), r.get_batch(idx)
+        scaled = r.get_batch(idx, (85, 48))
+    same = bool(np.array_equal(first, again))
+    diff = None
+    try:
+        from rspnet_tpu_torch.data.video_reader import CvVideoReader
+        c = CvVideoReader(path)
+        diff = int(np.abs(first[:3].astype(int)
+                          - c.get_batch(idx[:3]).astype(int)).max())
+        c.close()
+    except ImportError:
+        pass
+    print(f"native decoder: MJPG 170x96, frames {idx}: shape "
+          f"{list(first.shape)}, scaled {list(scaled.shape)}, two calls "
+          f"bit-equal {same}, max abs against OpenCV {diff} (limit 2)",
+          flush=True)
+    require(same and first.shape == (5, 96, 170, 3)
+            and scaled.shape == (5, 48, 85, 3), "phase 14 native decoder")
+    require(diff is None or diff <= 2,
+            f"native decoder against OpenCV: {diff}")
+    return {"built": True, "bit_equal": same, "opencv_max_abs": diff}
+
+
 def report_profile(prof, wall_s: float) -> None:
     """Device time of the main-path run by kernel group and the top
     kernels (all 3 steps, the first one's warm-up included)."""
@@ -2244,19 +2557,21 @@ def main(argv=None) -> int:
         finetune_validate_path(os.path.join(exp, "finetune_validate"),
                                finetuned["checkpoint"])
         torch.cuda.empty_cache()
-        paths = {}
+        paths, zoo_ckpts, retrieved = {}, {}, {}
         for arch in ZOO_POOL_SITES:                                   # 7
             leg = zoo_pretrain_path(arch, os.path.join(exp, arch),
                                     args.profile)
             paths[f"{arch}_pretrain"] = leg["launches"]
+            zoo_ckpts[arch] = leg["checkpoint"]
             torch.cuda.empty_cache()
-            paths[f"retrieval_{arch}"] = retrieval_path(               # 8
+            retrieved[arch] = retrieval_path(                         # 8
                 arch, os.path.join(exp, f"retrieval_{arch}"),
-                leg["checkpoint"])["launches"]
+                leg["checkpoint"])
+            paths[f"retrieval_{arch}"] = retrieved[arch]["launches"]
             torch.cuda.empty_cache()
-        paths["visualization"] = visualization_path(                  # 9
-            os.path.join(exp, "visualization"),
-            trained["checkpoint"])["launches"]
+        visualized = visualization_path(                              # 9
+            os.path.join(exp, "visualization"), trained["checkpoint"])
+        paths["visualization"] = visualized["launches"]
         torch.cuda.empty_cache()
         legs = {}
         for leg, (config, b, frames, calls) in P10_PRETRAIN.items():  # 10
@@ -2298,6 +2613,25 @@ def main(argv=None) -> int:
             os.path.join(exp, "aug_plus_validate"),
             leg12["checkpoint"])["launches"]
         torch.cuda.empty_cache()
+        gc.collect()                                                  # 14
+        cached = cached_pretrain_path(os.path.join(exp, "cached"), trained)
+        check_cache_exact(cached.pop("engine"))
+        paths["s3dg_cached"] = cached["launches"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths["finetune_cached"] = cached_finetune_path(
+            os.path.join(exp, "finetune_cached"), trained["checkpoint"],
+            finetuned)["launches"]
+        torch.cuda.empty_cache()
+        paths["retrieval_resnet18_cached"] = cached_retrieval_path(
+            os.path.join(exp, "retrieval_cached"), zoo_ckpts["resnet18"],
+            retrieved["resnet18"])["launches"]
+        torch.cuda.empty_cache()
+        paths["visualization_cached"] = cached_visualization_path(
+            os.path.join(exp, "visualization_cached"),
+            trained["checkpoint"], visualized)["launches"]
+        torch.cuda.empty_cache()
+        native_decoder_check(exp)
     gc.collect()                                                      # 13
     torch.cuda.empty_cache()
     multirank = multirank_path()

@@ -292,9 +292,11 @@ class VideoDataLoader:
 
 def build_loader(cfg_tree, split: str, *, vid: bool = False,
                  final_validate: bool = False, debug: bool = False,
-                 catalog=None, batch_multiplier: int = 1) -> VideoDataLoader:
+                 catalog=None, batch_multiplier: int = 1, device=None):
     """ConfigTree -> VideoDataLoader (reference DataLoaderFactoryV3.build,
-    datasets/classification/__init__.py:64-149)."""
+    datasets/classification/__init__.py:64-149), or the
+    ``DeviceCachedLoader`` around it on ``device`` that ``cache_device``
+    asks for."""
     from .catalogs import build_catalog
 
     tt = cfg_tree.get_config("temporal_transforms")
@@ -365,10 +367,21 @@ def build_loader(cfg_tree, split: str, *, vid: bool = False,
     cfg.process_index, cfg.process_count = _process_index_count()
 
     catalog = catalog or build_catalog(cfg_tree, split)
-    if cfg_tree.get("cache_device", False) not in (False, None):
-        raise NotImplementedError(
-            "cache_device is not ported yet (see ROADMAP.md)")
-    return VideoDataLoader(catalog, cfg)
+    loader = VideoDataLoader(catalog, cfg)
+    # cache_device: true caches every split; "train" only the train split
+    # (an n_crop-expanded final validate can exceed the device's budget).
+    # One-time host-to-device materialization, then every epoch is served
+    # from device memory (batch-axis index_select): data/device_cache.py
+    cache = cfg_tree.get("cache_device", False)
+    if cache is True or (cache == "train" and train):
+        if device is None:
+            raise ValueError("cache_device needs the engine's device")
+        from .device_cache import DeviceCachedLoader
+        loader = DeviceCachedLoader(loader, device)
+    elif cache not in (False, None, "train"):
+        raise ValueError(f"cache_device must be true/false/'train', "
+                         f"got {cache!r}")
+    return loader
 
 
 def _process_index_count() -> Tuple[int, int]:

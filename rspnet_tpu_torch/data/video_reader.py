@@ -4,12 +4,16 @@ The reference decodes with decord (C++/FFmpeg) per __getitem__
 (reference: datasets/classification/video.py:55-80). Decode stays on the
 CPU host behind a small backend interface:
 
-- ``CvVideoReader``: OpenCV decode (sequential grab/retrieve); ``cv2`` is
-  imported lazily, so the synthetic path runs without OpenCV.
+- ``RspVideoReader``: the C++ FFmpeg decoder (``native/``), built with
+  ``g++`` at first use; it mirrors decord's open/get_batch contract.
+- ``CvVideoReader``: OpenCV decode (sequential grab/retrieve), where the
+  native decoder cannot be built; ``cv2`` is imported lazily, so the
+  synthetic path runs without OpenCV.
 - ``SyntheticVideoReader``: procedural frames for tests/benchmarks.
 
 ``open_video(path)`` picks the backend: synthetic:// URLs -> synthetic,
-else OpenCV. The JAX package's native FFmpeg decoder is not ported yet.
+else the native decoder when it builds, else OpenCV (the build error is
+logged once).
 """
 from __future__ import annotations
 
@@ -192,4 +196,7 @@ def _synthetic_reader(url: str) -> "SyntheticVideoReader":
 def open_video(path: str) -> VideoReaderBase:
     if path.startswith("synthetic://"):
         return _synthetic_reader(path)
+    from ..native import video_decode
+    if video_decode.is_available():
+        return video_decode.RspVideoReader(path)
     return CvVideoReader(path)

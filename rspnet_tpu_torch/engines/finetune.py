@@ -38,7 +38,8 @@ the masked sums, so the padded tail of the last batch counts nowhere
 its dropout masks from seed + 1 + rank; ``--mc`` and every checkpoint
 load on every rank; rank 0 alone writes checkpoints and TensorBoard.
 
-Not ported yet (each raises NotImplementedError): ``cache_device`` and
+``cache_device`` (``data/device_cache.py``) serves the clips from the
+card, as in the pretrain engine. Not ported (raises NotImplementedError):
 the 2-D ``parallel:`` layout (the JAX engine builds a 1-D mesh).
 """
 from __future__ import annotations
@@ -50,6 +51,7 @@ import numpy as np
 import torch
 
 from ..config import ConfigTree
+from ..data.device_cache import clip_to_device
 from ..data.pipeline import build_loader, prefetch_iterator
 from ..framework import CheckpointManager, MeterGroup, MetricSpool, load_state
 from ..framework.checkpoint import load_optimizer_state
@@ -100,8 +102,6 @@ def _unsupported(cfg: ConfigTree, args) -> None:
 
     if cfg.get("parallel", None) is not None:
         nope("the 2-D `parallel:` layout")
-    if cfg.get("cache_device", False) not in (False, None):
-        nope("cache_device")
 
 
 class FinetuneEngine:
@@ -163,10 +163,10 @@ class FinetuneEngine:
         if not final_validate:
             self.train_loader = build_loader(
                 cfg, "train", debug=self.debug,
-                batch_multiplier=self.world_size)
+                batch_multiplier=self.world_size, device=self.device)
         self.validate_loader = build_loader(
             cfg, "val", final_validate=final_validate,
-            batch_multiplier=self.world_size)
+            batch_multiplier=self.world_size, device=self.device)
 
         tt = cfg.get_config("temporal_transforms")
         self.n_crop = (tt.get_int("validate.final_n_crop") if final_validate
@@ -204,7 +204,7 @@ class FinetuneEngine:
     # -- device preprocessing ---------------------------------------------
     # Device-geometry loaders ship decode-resolution clips and the crop box
     # is applied here; host-geometry clips arrive cropped (identity boxes).
-    def _train_augment(self, clip_u8: np.ndarray) -> torch.Tensor:
+    def _train_augment(self, clip_u8) -> torch.Tensor:
         B, _, H, W, _ = clip_u8.shape
         dev_geom = getattr(self.train_loader.cfg, "device_geometry", False)
         p = sample_train_params(
@@ -217,19 +217,19 @@ class FinetuneEngine:
             p.boxes[:] = [0, 0, H, W]
         mean, std = self.normalize
         return augment_batch(
-            torch.from_numpy(clip_u8).to(self.device), p,
+            clip_to_device(clip_u8, self.device), p,
             size=(self.size, self.size), mean=mean, std=std,
             gray_before_jitter=True, use_blur=False,
             identity_geometry=not dev_geom and (H, W) == (self.size,
                                                           self.size))
 
-    def _eval_preprocess(self, clip_u8: np.ndarray) -> torch.Tensor:
+    def _eval_preprocess(self, clip_u8) -> torch.Tensor:
         B, _, H, W, _ = clip_u8.shape
         p = center_crop_params(B, [(H, W)])
         if not getattr(self.validate_loader.cfg, "device_geometry", False):
             p.boxes[:] = [0, 0, H, W]
         mean, std = self.normalize
-        return eval_preprocess(torch.from_numpy(clip_u8).to(self.device),
+        return eval_preprocess(clip_to_device(clip_u8, self.device),
                                p.boxes, size=(self.size, self.size),
                                mean=mean, std=std)
 

@@ -44,7 +44,9 @@ draws its augment parameters from seed + rank and its permutations from
 seed + 1 + rank; the queue is rank 0's. Rank 0 alone writes the
 checkpoint (the dense queue) and TensorBoard; the others wait for it.
 
-Not ported yet (raises NotImplementedError): ``cache_device``.
+``cache_device`` (``data/device_cache.py``) serves the clips from the
+card: the loader's batches then hold uint8 tensors on the engine's
+device, which the augment takes without a copy. One process only.
 """
 from __future__ import annotations
 
@@ -55,6 +57,7 @@ import numpy as np
 import torch
 
 from ..config import ConfigTree
+from ..data.device_cache import clip_to_device
 from ..data.pipeline import build_loader, prefetch_iterator
 from ..framework import CheckpointManager, MeterGroup, load_state
 from ..framework.checkpoint import load_optimizer_state
@@ -87,18 +90,11 @@ def resolve_device(name: str) -> torch.device:
     raise ValueError(f"unknown device {name!r}")
 
 
-def _unsupported(cfg: ConfigTree, args) -> None:
-    if cfg.get("cache_device", False) not in (False, None):
-        raise NotImplementedError(
-            "cache_device is not ported yet (see ROADMAP.md)")
-
-
 class PretrainEngine:
     def __init__(self, args, cfg: ConfigTree):
         self.args = args
         self.cfg = cfg
         self.debug = bool(getattr(args, "debug", False))
-        _unsupported(cfg, args)
         self.device = resolve_device(getattr(args, "device", "cuda"))
         self.dtype = torch.bfloat16 if self.device.type == "cuda" else None
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -150,7 +146,8 @@ class PretrainEngine:
 
         self.train_loader = build_loader(cfg, "train", vid=True,
                                          debug=self.debug,
-                                         batch_multiplier=self.world_size)
+                                         batch_multiplier=self.world_size,
+                                         device=self.device)
         self.size = cfg.get_int("spatial_transforms.size")
 
         # the permutation of each rank's rows
@@ -198,7 +195,7 @@ class PretrainEngine:
     # boxes); device-geometry loaders ship decode-res windows and the crop
     # box is sampled here with the VID crop_area (0.4, 1.0)
     # (rspnet_tpu/engines/pretrain.py:188-214).
-    def _augment_clip(self, clip_u8: np.ndarray) -> torch.Tensor:
+    def _augment_clip(self, clip_u8) -> torch.Tensor:
         B, _, H, W, _ = clip_u8.shape
         dev_geom = getattr(self.train_loader.cfg, "device_geometry", False)
         crop_area = self.train_loader.cfg.crop_area if dev_geom else (1.0, 1.0)
@@ -215,7 +212,7 @@ class PretrainEngine:
             # crop/resize already happened on the host: identity boxes
             p.boxes[:] = [0, 0, H, W]
         mean, std = self.normalize
-        batch = torch.from_numpy(clip_u8).to(self.device)
+        batch = clip_to_device(clip_u8, self.device)
         return augment_batch(
             batch, p, size=(self.size, self.size), mean=mean, std=std,
             gray_before_jitter=not self.aug_plus, use_blur=self.aug_plus,

@@ -39,8 +39,9 @@ writes the files. The train split's crop boxes are drawn for the whole
 global batch on every rank and each takes its rows, so a run's boxes do
 not depend on the number of ranks (the JAX engine's one-process mesh).
 
-Not ported yet (each raises NotImplementedError): ``cache_device`` and
-the 2-D ``parallel:`` layout.
+``cache_device`` (``data/device_cache.py``) serves both splits' clips
+from the card. Not ported (raises NotImplementedError): the 2-D
+``parallel:`` layout.
 """
 from __future__ import annotations
 
@@ -53,6 +54,7 @@ import numpy as np
 import torch
 
 from ..config import ConfigTree
+from ..data.device_cache import clip_to_device
 from ..data.pipeline import build_loader
 from ..framework import load_state
 from ..models.common import global_avg_pool
@@ -137,9 +139,11 @@ class RetrievalEngine:
         # EvenNCrop(final_n_crop) on both splits (force_n_crop)
         world = self.mesh.size
         self.train_loader = build_loader(cfg, "train", final_validate=True,
-                                         batch_multiplier=world)
+                                         batch_multiplier=world,
+                                         device=self.device)
         self.test_loader = build_loader(cfg, "val", final_validate=True,
-                                        batch_multiplier=world)
+                                        batch_multiplier=world,
+                                        device=self.device)
         tt = cfg.get_config("temporal_transforms")
         self.n_crop = tt.get_int("validate.final_n_crop", 10)
         self.size = cfg.get_int("spatial_transforms.size")
@@ -189,7 +193,7 @@ class RetrievalEngine:
                 clip_u8 = batch["clips"][0]
                 B, _, H, W, _ = clip_u8.shape
                 clips = eval_preprocess(
-                    torch.from_numpy(clip_u8).to(self.device),
+                    clip_to_device(clip_u8, self.device),
                     self._boxes(loader, B, H, W),
                     size=(self.size, self.size), mean=mean, std=std)
                 f = crop_features(self.model, clips, self.n_crop)

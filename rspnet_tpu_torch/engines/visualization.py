@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from ..config import ConfigTree
+from ..data.device_cache import clip_to_device
 from ..data.pipeline import build_loader
 from ..framework import load_state
 from ..models.convert import load_variables
@@ -146,7 +147,8 @@ class VisualizationEngine:
         self.model_k = self.model_q
         self.arch = cfg.get_string("model.arch")
         self.size = cfg.get_int("spatial_transforms.size")
-        self.loader = build_loader(cfg, "train", vid=True, debug=self.debug)
+        self.loader = build_loader(cfg, "train", vid=True, debug=self.debug,
+                                   device=self.device)
 
     def load_moco_checkpoint(self, path) -> None:
         """A pretrain checkpoint of either package: the query side from
@@ -212,7 +214,7 @@ class VisualizationEngine:
         boxes = np.array([[i0, j0, bh, bw]] * B, np.float32)
         mean, std = self.normalize
         clip_q, clip_k = (eval_preprocess(
-            torch.from_numpy(c).to(self.device), boxes,
+            clip_to_device(c, self.device), boxes,
             size=(self.size, self.size), mean=mean, std=std)
             for c in (qs, ks))
         # the dual-speed pairing of training, q and k at matched speeds

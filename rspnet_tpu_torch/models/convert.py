@@ -48,7 +48,7 @@ from .resnet3d import DEPTHS, Bottleneck
 from .slowfast import SPECS as _SLOWFAST_SPECS
 
 __all__ = ["variables_to_state_dict", "state_dict_to_variables",
-           "load_converted", "load_variables"]
+           "load_converted", "load_variables", "inflate_2d_state_dict"]
 
 
 def _conv_w(t: np.ndarray) -> np.ndarray:
@@ -447,3 +447,56 @@ def load_variables(module: torch.nn.Module, variables: Mapping,
     """Load JAX-layout ``{"params", "batch_stats"}`` trees (as a checkpoint
     of either package holds them) into ``module``."""
     load_converted(module, variables_to_state_dict(variables, arch))
+
+
+def inflate_2d_state_dict(state_dict: Mapping,
+                          state_dict_2d: Mapping[str, np.ndarray],
+                          arch: str = "mfnet", method: str = "inflation"):
+    """Initialize a 3-D model's ``state_dict`` from a 2-D torch state dict
+    by temporal inflation (port of rspnet_tpu/models/torch_bridge.py:284,
+    the reference's init_3d_from_2d_dict, models/mfnet/initializer.py:
+    54-136). The port's names are the reference's, so the 2-D dict's keys
+    are looked up as they are.
+
+    A mapped conv whose 2-D weight [O, I, kh, kw] matches the 3-D weight
+    [O, I, kt, kh, kw] on every non-temporal dim is divided by kt and
+    replicated kt times along the temporal axis (kt == 1: reshaped). BN
+    and linear tensors of exactly the target's shape are copied. Anything
+    else (a head of another shape, a key absent from the 2-D dict or from
+    the model) keeps its current value, as in the reference.
+
+    Only ``method='inflation'`` exists: the reference hardcodes it
+    (mfnet_3d.py:156). Returns (new state_dict, loaded keys, skipped keys),
+    in the order of the arch's mapping.
+    """
+    if method != "inflation":
+        raise NotImplementedError(
+            "only 'inflation' is implemented (the reference hardcodes "
+            "load_method='inflation', models/mfnet/mfnet_3d.py:156)")
+    if arch not in KEY_MAPPERS:
+        raise NotImplementedError(
+            f"No torch checkpoint mapping for arch {arch!r}; mapped archs: "
+            f"{sorted(KEY_MAPPERS)}")
+    out = dict(state_dict)
+    loaded, skipped = [], []
+    for key_t, (_, _, conv) in KEY_MAPPERS[arch]():
+        if key_t not in state_dict_2d or key_t not in out:
+            skipped.append(key_t)
+            continue
+        src = _numpy(state_dict_2d[key_t])
+        dst = out[key_t]
+        if conv is _conv_w and src.ndim == 4:
+            co, ci, kt, kh, kw = dst.shape
+            if src.shape != (co, ci, kh, kw):
+                skipped.append(key_t)
+                continue
+            v = (src[:, :, None] if kt == 1 else np.broadcast_to(
+                src[:, :, None] / float(kt), tuple(dst.shape)))
+        else:
+            v = src
+            if tuple(v.shape) != tuple(dst.shape):
+                skipped.append(key_t)
+                continue
+        out[key_t] = torch.from_numpy(np.ascontiguousarray(v)).to(dst.dtype)
+        loaded.append(key_t)
+    return out, loaded, skipped

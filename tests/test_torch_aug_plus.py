@@ -28,6 +28,7 @@ from rspnet_tpu_torch.engines.pretrain import PretrainEngine
 from rspnet_tpu_torch.ops import augment as taug
 from rspnet_tpu_torch.ops import color as tcolor
 from tests.conftest import REPO_ROOT
+from tests.torch_checkpoints import drop_checkpoints  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -42,6 +42,11 @@ through the JAX module and the port's, with weights carried over by
   whole S3D-G's bf16 output is 50-70% off its f64 output (each inception
   block multiplies the relative error by about 1.4, in both packages), so
   the two errors there are noise of the same size whatever was rounded.
+  The port's step runs with oneDNN off: on a CPU with AVX512-BF16,
+  oneDNN's bf16 weight gradient of a temporal convolution whose kernel is
+  longer than its input (sepConv1's (7, 1, 1) over the stem's 4 frames)
+  is garbage, off by up to 1e17 of its norm; ATen's own CPU convolution
+  is within 0.4% of f64 there, as the card's cuDNN is.
 """
 from typing import Any
 
@@ -431,9 +436,11 @@ def test_bf16_train_step_error_budget():
              "weight_decay": 1e-4}), net_q.parameters(), 0.05)
         state = MoCoState(net_q, net_k, torch.from_numpy(queue.copy()), 0,
                           sgd)
-        mp = train_step(state, torch.from_numpy(x_q), torch.from_numpy(x_k),
-                        MoCoConfig(dim=DIM, k=K, m=0.999, t=0.07),
-                        perm=torch.from_numpy(perm), speed_index=0)
+        with torch.backends.mkldnn.flags(enabled=False):  # docstring
+            mp = train_step(state, torch.from_numpy(x_q),
+                            torch.from_numpy(x_k),
+                            MoCoConfig(dim=DIM, k=K, m=0.999, t=0.07),
+                            perm=torch.from_numpy(perm), speed_index=0)
         assert state.queue.dtype == torch.float32
         assert all(p.dtype == torch.float32 for p in net_q.parameters())
         assert all(m.dtype == torch.float32 for m in mp.values())

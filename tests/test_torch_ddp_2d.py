@@ -40,6 +40,7 @@ from tests.test_step_parity import enable_x64
 from tests.test_torch_ddp import (ATOL, B, RTOL, S, T, assert_ranks_equal,
                                   assert_state, jax_setup, replica_perms)
 from tests.torch_ddp_ranks import run_ranks
+from tests.torch_checkpoints import drop_checkpoints  # noqa: F401
 
 torch.set_num_threads(1)
 K2 = 8      # K/M = 4 = the global batch: each step fills one shard

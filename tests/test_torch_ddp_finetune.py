@@ -56,6 +56,7 @@ from tests.test_torch_ddp import (ATOL, MODEL_CFG, OPT, RTOL, S, T,
 from tests.test_torch_retrieval import ARTIFACTS, SYNTH
 from tests.test_torch_step import _np_tree
 from tests.torch_ddp_ranks import run_ranks
+from tests.torch_checkpoints import drop_checkpoints  # noqa: F401
 
 torch.set_num_threads(1)
 C = 7

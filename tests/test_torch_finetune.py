@@ -19,7 +19,8 @@
 - The CLI: ``python -m rspnet_tpu_torch.pretrain`` then
   ``python -m rspnet_tpu_torch.finetune --mc`` on synthetic data at 32²
   and 8 frames, on the CPU; ``--validate`` from its checkpoint; the
-  default device and unported options raise.
+  default device and unported options raise; ``cache_device`` builds both
+  splits' device caches.
 """
 import os
 import subprocess
@@ -40,6 +41,7 @@ from rspnet_tpu.models import get_model_class
 from rspnet_tpu.moco import MultiTaskWrapper as JaxWrapper
 from rspnet_tpu.ops import augment as jaug
 from rspnet_tpu_torch import finetune
+from rspnet_tpu_torch.data.device_cache import DeviceCachedLoader
 from rspnet_tpu_torch.engines import classifier
 from rspnet_tpu_torch.engines import finetune as ft_engine
 from rspnet_tpu_torch.framework.metrics import (accuracy,
@@ -52,6 +54,7 @@ from rspnet_tpu_torch.ops import augment as taug
 from tests.conftest import REPO_ROOT
 from tests.test_step_parity import enable_x64
 from tests.test_torch_bf16 import _bf16_values, _within_ulps, ulp_bf16
+from tests.torch_checkpoints import drop_checkpoints  # noqa: F401
 
 torch.set_num_threads(1)
 ATOL, RTOL = 1e-8, 1e-7
@@ -331,6 +334,16 @@ def ft_engine_args(exp, extra=""):
                                    ", model+: {pretrain: true}"])
 def test_unported_options_raise(tmp_path, monkeypatch, extra):
     monkeypatch.chdir(REPO_ROOT)
+    if "cache_device" in extra:
+        # ported since (data/device_cache.py): both splits come from the
+        # cache, and a value the cache does not know raises
+        eng = ft_engine.FinetuneEngine(*ft_engine_args(tmp_path, extra))
+        assert isinstance(eng.train_loader, DeviceCachedLoader)
+        assert isinstance(eng.validate_loader, DeviceCachedLoader)
+        with pytest.raises(ValueError, match="cache_device"):
+            ft_engine.FinetuneEngine(*ft_engine_args(
+                tmp_path / "bad", ", cache_device: 'val'"))
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP|ported"):
         ft_engine.FinetuneEngine(*ft_engine_args(tmp_path, extra))
 

@@ -6,7 +6,8 @@ caught too.
 OpenCV is not on the card machine either: no port file imports ``cv2``
 but inside the two functions that decode or resize frames on the host
 (``data/video_reader.py``; ``data/pipeline.py:_load_one``, host geometry
-only), never at module level. The CAM visualization has its own image
+only) and the host micro-bench's video writer
+(``utils/bench_input_path.py:make_videos``), never at module level. The CAM visualization has its own image
 helper (``utils/image.py``).
 
 PyYAML is not on the card machine: no port file imports ``yaml``; the
@@ -43,7 +44,9 @@ def _imported_roots(path: pathlib.Path):
 # (file, function) pairs that may import cv2 lazily
 CV2_ALLOWED = {("rspnet_tpu_torch/data/video_reader.py", "_maybe_resize"),
                ("rspnet_tpu_torch/data/video_reader.py", "__init__"),
-               ("rspnet_tpu_torch/data/pipeline.py", "_load_one")}
+               ("rspnet_tpu_torch/data/pipeline.py", "_load_one"),
+               ("rspnet_tpu_torch/utils/bench_input_path.py",
+                "make_videos")}
 
 
 def _cv2_imports(path: pathlib.Path):

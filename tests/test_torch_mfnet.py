@@ -33,6 +33,7 @@ from tests.test_torch_r2plus1d import BF, bf16_block_parity
 from tests.test_torch_slowfast import forward_grad_parity
 from tests.test_torch_zoo import release_jax_memory  # noqa: F401
 from tests.test_torch_zoo import layout_modules, round_trip
+from tests.torch_checkpoints import drop_checkpoints  # noqa: F401
 
 torch.set_num_threads(1)
 T, S, NC = 8, 32, 5

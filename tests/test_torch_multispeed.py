@@ -49,6 +49,7 @@ from tests.conftest import REPO_ROOT
 from tests.test_step_parity import enable_x64
 from tests.test_torch_step import ATOL, RTOL, _assert_model, _port_model
 from tests.test_torch_zoo import release_jax_memory  # noqa: F401
+from tests.torch_checkpoints import drop_checkpoints  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -2,7 +2,8 @@
 
 ``python -m rspnet_tpu_torch.pretrain --device cpu -d`` on a tiny synthetic
 S3D-G config, in both geometries; the checkpoint it writes resumes; the
-default device (cuda) raises without a card; ``cache_device`` raises;
+default device (cuda) raises without a card; ``cache_device`` trains from
+the device cache and only a value it does not know raises;
 ``--validate`` runs one statistics epoch and writes no checkpoint.
 """
 import subprocess
@@ -12,8 +13,10 @@ import pytest
 import torch
 
 from rspnet_tpu_torch import pretrain
+from rspnet_tpu_torch.data.device_cache import DeviceCachedLoader
 from rspnet_tpu_torch.engines.pretrain import resolve_device
 from tests.conftest import REPO_ROOT
+from tests.torch_checkpoints import drop_checkpoints  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -66,9 +69,15 @@ def test_cuda_without_card_raises(monkeypatch):
 
 @pytest.mark.parametrize("extra", [", cache_device: true"])
 def test_unported_options_raise(tmp_path, monkeypatch, extra):
+    """No pretrain option is left unported: ``cache_device``
+    (data/device_cache.py) trains from the cache, and a value the cache
+    does not know raises."""
     monkeypatch.chdir(REPO_ROOT)
-    with pytest.raises(NotImplementedError):
-        pretrain.main(_argv(tmp_path, extra))
+    engine = pretrain.main(_argv(tmp_path, extra + ", device_geometry: true"))
+    assert isinstance(engine.train_loader, DeviceCachedLoader)
+    assert len(engine.step_times) == 3
+    with pytest.raises(ValueError, match="cache_device"):
+        pretrain.main(_argv(tmp_path / "bad", ", cache_device: 'val'"))
 
 
 def test_validate_runs(tmp_path):

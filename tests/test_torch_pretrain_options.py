@@ -44,6 +44,7 @@ from rspnet_tpu_torch.framework.lr_schedule import build_optimizer, set_opt_lr
 from tests.conftest import REPO_ROOT
 from tests.test_step_parity import enable_x64
 from tests.test_torch_pretrain import _argv
+from tests.torch_checkpoints import drop_checkpoints  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -49,6 +49,7 @@ from tests.test_torch_bf16 import (_bf16_values, _converted, _perturbed,
 from tests.test_torch_zoo import release_jax_memory  # noqa: F401
 from tests.test_torch_zoo import (backbone_forward_parity, layout_modules,
                                   round_trip)
+from tests.torch_checkpoints import drop_checkpoints  # noqa: F401
 
 torch.set_num_threads(1)
 T, S, NC = 8, 32, 5

@@ -44,6 +44,7 @@ from rspnet_tpu_torch.moco import MultiTaskWrapper
 from tests.conftest import REPO_ROOT
 from tests.test_torch_zoo import (  # noqa: F401 (a fixture)
     _random_variables, release_jax_memory)
+from tests.torch_checkpoints import drop_checkpoints  # noqa: F401
 
 torch.set_num_threads(1)
 DIM, NC = 8, 4

@@ -52,6 +52,7 @@ from tests.test_torch_r2plus1d import BF, bf16_block_parity
 from tests.test_torch_zoo import release_jax_memory  # noqa: F401
 from tests.test_torch_zoo import (_np, _random_variables, layout_modules,
                                   round_trip)
+from tests.torch_checkpoints import drop_checkpoints  # noqa: F401
 
 torch.set_num_threads(1)
 ATOL, RTOL = 1e-8, 1e-7

@@ -52,6 +52,7 @@ from tests.conftest import REPO_ROOT
 from tests.test_step_parity import enable_x64
 from tests.test_torch_finetune import finetune_argv
 from tests.test_torch_pretrain import _argv as pretrain_argv
+from tests.torch_checkpoints import drop_checkpoints  # noqa: F401
 
 torch.set_num_threads(1)
 ATOL, RTOL = 1e-8, 1e-7

@@ -29,6 +29,7 @@ from tests.conftest import REPO_ROOT
 from tests.test_step_parity import enable_x64
 from tests.test_torch_pretrain import _argv
 from tests.test_torch_step import _np_tree, _port_model
+from tests.torch_checkpoints import drop_checkpoints  # noqa: F401
 
 torch.set_num_threads(1)
 ATOL, RTOL = 1e-8, 1e-7

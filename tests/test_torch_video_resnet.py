@@ -28,6 +28,7 @@ from rspnet_tpu_torch.models import get_model_class, video_resnet
 from tests.test_torch_slowfast import forward_grad_parity
 from tests.test_torch_zoo import release_jax_memory  # noqa: F401
 from tests.test_torch_zoo import layout_modules, round_trip
+from tests.torch_checkpoints import drop_checkpoints  # noqa: F401
 
 torch.set_num_threads(1)
 ARCH = "torchvision-resnet18"

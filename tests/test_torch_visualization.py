@@ -41,6 +41,7 @@ from tests.conftest import REPO_ROOT
 from tests.test_step_parity import enable_x64
 from tests.test_torch_zoo import (  # noqa: F401 (a fixture)
     _random_variables, release_jax_memory)
+from tests.torch_checkpoints import drop_checkpoints  # noqa: F401
 
 torch.set_num_threads(1)
 DIM, B, SEED = 8, 2, 1

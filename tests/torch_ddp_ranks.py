@@ -227,8 +227,25 @@ def loader(data: dict, rank: int) -> dict:
             "index": (ld.cfg.process_index, ld.cfg.process_count)}
 
 
+def cache_refused(data: dict, rank: int) -> dict:
+    """The error of a ``cache_device`` loader built in a group of more
+    than one rank."""
+    from rspnet_tpu_torch.config import load_config
+    from rspnet_tpu_torch.data.pipeline import build_loader
+    from rspnet_tpu_torch.parallel import world_size
+
+    cfg = load_config(data["config"], [data["ext"]])
+    try:
+        build_loader(cfg, "train", vid=True, batch_multiplier=world_size(),
+                     device="cpu")
+    except ValueError as e:
+        return {"error": str(e)}
+    return {"error": None}
+
+
 JOBS = {"moco": moco, "classifier": classifier, "precise_bn": precise_bn,
-        "features": features, "loader": loader}
+        "features": features, "loader": loader,
+        "cache_refused": cache_refused}
 
 
 def several(data: dict, rank: int) -> list:
