@@ -11,11 +11,14 @@ Phases, each printing its own lines:
      K1/K2 (max pool fwd/bwd) at the 13 S3D-G pool sites (batch cut to 4)
      and at small shapes no site has (the generic instances, the
      one-channel path, the compile-time instances at other paddings and
-     planes), f32 and bf16, with and without ties, both
+     planes and, for K2's tiled instances, at C = 8 and 16 and the 7²
+     non-local pool), f32 and bf16, with and without ties, both
      bit-equal; K1/K2 (both builds) on inputs that hold NaN and -inf, and
      K2 on inputs whose corner windows are all -inf, NaN where the plain
      version has NaN and bit-equal elsewhere; K1/K2 on two tensors of over
-     2^31 elements (the 64-bit index plans); K3 (colour augment) over all
+     2^31 elements (the 64-bit index plans); K2 on views that start two
+     elements into their storage (the plan's alignment check takes V = 1
+     there); K3 (colour augment) over all
      24 op orders x gray on/off x flip on/off x gray before/after, uint8
      and f32 input, at [8, 32, 224, 224, 3], at the main path's batch 64,
      at four ragged shapes, at a clip too large for the resident instance
@@ -26,7 +29,8 @@ Phases, each printing its own lines:
      main path's dtype), each also held bit-equal to its plain version
      there (K1 at the fused key pass's batch 128 too, both dtypes), and
      their compile-time instances are timed against their generic
-     instances (the max_pool3d_generic build); K3's resident instance
+     instances (the max_pool3d_generic build), K2 also against aten's
+     backward (a ``K2<=aten`` flag a site); K3's resident instance
      against its generic one (the color_augment_generic build), u8 and
      f32, with its grid, and where its time goes clip by clip (the
      color_augment_timeline build, ``ops/k3_timeline.py``);
@@ -219,6 +223,13 @@ EXTRA_POOL_SITES = [
     ("tile.k2_p1", (3, 5, 5, 4), (2, 2, 2), (2, 2, 2), (1, 1, 1)),
     ("tile.branch3_p0", (5, 9, 11, 8), (3, 3, 3), (1, 1, 1), (0, 0, 0)),
     ("tile.stem_odd", (4, 9, 13, 12), (1, 3, 3), (1, 2, 2), (0, 1, 1)),
+    # K2's tiled instances where a block trades channel vectors for pixels
+    # (C / V of 1 and 2 in bf16), and the (1,2,2) non-local pool at 7²
+    # with its floor tail
+    ("tile.stem_c8", (4, 28, 28, 8), (1, 3, 3), (1, 2, 2), (0, 1, 1)),
+    ("tile.stem_c16", (4, 28, 28, 16), (1, 3, 3), (1, 2, 2), (0, 1, 1)),
+    ("tile.branch3_c8", (4, 14, 14, 8), (3, 3, 3), (1, 1, 1), (1, 1, 1)),
+    ("tile.nl_7x7", (2, 7, 7, 64), (1, 2, 2), (1, 2, 2), (0, 0, 0)),
 ]
 # ([B, T, H, W, C], kernel, stride, padding, dtype) of tensors with 2^31 or
 # more elements: the 64-bit index plans of K1 and K2, on the four-channel
@@ -229,11 +240,13 @@ WIDE_POOL_SITES = [
 ]
 # sites whose inputs hold NaN and -inf (phase 2): each K1 instance (the
 # four S3D-G geometries, also at their edge cases) and the generic one
-# (C % 4 != 0, another geometry)
+# (C % 4 != 0, another geometry); K2's tiled instances at C = 8 and 16
+# (bf16: one and two vectors a pixel) and at the non-local pool
 NAN_POOL_SITES = ("maxPool1", "sepInc_3b.branch3", "maxPool_sepInc_4b",
                   "maxPool_sepInc_5b", "sepInc_5b.branch3", "odd.floor_tail",
                   "generic.mixed", "tile.floor_tail", "tile.k2_p1",
-                  "tile.branch3_p0", "tile.stem_odd")
+                  "tile.branch3_p0", "tile.stem_odd", "tile.stem_c8",
+                  "tile.stem_c16", "tile.branch3_c8", "tile.nl_7x7")
 GENERIC = "max_pool3d_generic"   # the build without compile-time instances
 K3_TOL = 1e-4
 COLOR_CLIP = (32, 224, 224)     # [T, H, W] of a K3 clip on the main path
@@ -498,6 +511,31 @@ def check_pool_nan(dev, batch: int) -> None:
                             f"K1/K2 {case} {name} {dtype} {build}: differs "
                             f"from the plain version (fwd {ok_f}, bwd "
                             f"{ok_b})")
+
+
+def check_pool_offset(dev) -> None:
+    """K2 on x, g whose data start two elements into their storage (4 or 8
+    bytes off: the plan's alignment check takes V = 1), at an S3D-G
+    geometry, held bit-equal to the plain version."""
+    import torch
+    from rspnet_tpu_torch.ops import max_pool3d as mp
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    name, shape4, k, s, p = POOL_SITES[2]
+    shape = (4, *shape4)
+    for dtype in (torch.float32, torch.bfloat16):
+        n = math.prod(shape)
+        x = torch.randn(n + 2, generator=gen, device=dev).relu_().to(
+            dtype)[2:].view(shape)
+        oshape = mp._out_shape(shape, k, s, p)
+        g = torch.randn(math.prod(oshape) + 2, generator=gen,
+                        device=dev).to(dtype)[2:].view(oshape)
+        same = torch.equal(mp.max_pool3d_bwd(x, g, k, s, p),
+                           mp.max_pool3d_bwd_plain(x, g, k, s, p))
+        print(f"check K2 {name} {list(shape)} {dtype} at storage offset "
+              f"{x.storage_offset()} ({x.data_ptr() % 16} bytes past 16): "
+              f"bit-equal {same}", flush=True)
+        require(same, f"K2 on an offset view {dtype}: differs from plain")
 
 
 def check_pool_wide(dev) -> None:
@@ -781,7 +819,7 @@ def time_pool(dev, batch: int, dtype_name: str, sites=POOL_SITES,
                           "bwd_plain": bp, "bwd_lib": bl, "bwd_bound": bb})
             line += (f" | K2 {b:.4f} ms (again {b2:.4f}, generic instance "
                      f"{bg:.4f}, bound {bb:.4f}, plain {bp:.3f}, aten bwd "
-                     f"{bl:.4f})")
+                     f"{bl:.4f}, K2<=aten {min(b, b2) <= bl})")
             del g, idx
         for key, v in times.items():
             tot[key] += v
@@ -1523,7 +1561,8 @@ def visualization_path(exp: str, pretrained: str) -> dict:
 
 _KERNEL_GROUPS = [
     # pool_fwd also matches K1's tiled instances, pool_fwd_tile<...>
-    ("K1/K2 max pool", ("pool_fwd", "pool_route", "pool_gather")),
+    ("K1/K2 max pool", ("pool_fwd", "pool_route", "pool_gather",
+                        "route_tile", "gather_tile")),
     ("K3 colour augment", ("augment_resident", "luma_partials",
                            "apply_chain")),
     ("batch norm", ("batch_norm", "batchnorm", "bn_")),
@@ -2466,6 +2505,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     err_fwd, err_bwd = check_pool(dev, batch=4)                   # phase 2
     check_pool_nan(dev, batch=4)
+    check_pool_offset(dev)
     check_pool_wide(dev)
     err_color = max(
         check_color(dev, 8, COLOR_CLIP),

@@ -7,8 +7,8 @@
 // (W, then H, then T), which is the rule of the Pallas kernel and of
 // rspnet_tpu/models/common.py:_make_max_pool3d_fm.
 //
-// Both directions are bound by device-memory traffic (read x [and g], write
-// out [or dx]); the window arithmetic is a handful of compares per element.
+// The least time of both directions is set by device-memory traffic (read
+// x [and g], write out [or dx]); what holds each above it is said below.
 // Every max of the forward propagates NaN (a window holding a NaN gives
 // NaN), as the plain version's torch.maximum and the JAX pool's jnp.maximum
 // do.
@@ -35,31 +35,54 @@
 //   f32, batch 64: the 13 S3D-G sites take 2.68-2.72 ms against the
 //   generic instance's 4.82-4.84 and a 2.15 ms bound; the nine stride-1
 //   sites about 1.0 ms (bound 0.76), the four strided ones 1.6 (1.39).
-// - Backward, two launches. Composed W -> H -> T, the first-match rule sends
-//   each output's cotangent to exactly one input: the lexicographically
-//   first in-bounds cell, in (dw, dh, dt) order, that holds the window max
-//   (the first W column holding it, in that column the first H row, in that
-//   row the first T frame). One byte holds its offset dt*9 + dh*3 + dw.
-//   1. Route: one thread per output element vector scans its window as the
-//      forward does, keeping the first strict maximum in (dw, dh, dt) order,
-//      and writes the offset to a uint8 [B, To, Ho, Wo, C] buffer.
-//   2. Gather: one thread per input element vector visits its covering
-//      windows in window-offset order and adds g where the route names its
-//      own offset in that window. x is not read. The sum nests one
-//      accumulator per axis, T outermost and W innermost, so it adds in the
-//      order of the staged plain version (W stage, then H, then T); in bf16
-//      the W and H sums are rounded to bf16 before going up a level, as the
-//      plain version rounds each stage's cotangent. A trivial axis
-//      (k = s = 1, p = 0) has no stage and no rounding. No atomics: the
-//      result is deterministic and bit-equal to the plain version in f32
-//      and bf16.
-//   Bytes: x read, route written and read back, g read, dx written, about
-//   the bound plus the route. What holds K2 above that on the H100 is the
-//   window re-reads, not DRAM: at stride 1 each thread of either pass makes
-//   27 loads, served by L1; a strided gather waits on its route loads. So
-//   both passes map a block to a 2 x 2 x 4 pixel tile (neighbours share
-//   L1), and are compiled with the window and strides as constants for the
-//   four pool geometries of S3D-G (a generic instance takes the rest).
+// - Backward (K2), two launches. Composed W -> H -> T, the first-match rule
+//   sends each output's cotangent to exactly one input: the
+//   lexicographically first in-bounds cell, in (dw, dh, dt) order, that
+//   holds the window max (the first W column holding it, in that column
+//   the first H row, in that row the first T frame). One byte holds its
+//   offset dt*9 + dh*3 + dw.
+//   1. Route: each output element's offset into a uint8 [B, To, Ho, Wo, C]
+//      buffer.
+//   2. Gather: each input element's dx, the cotangents of the windows that
+//      route to it, summed as the staged plain version sums them (W stage,
+//      then H, then T, each in window-offset order; in bf16 each pooled
+//      stage rounded to bf16). x is not read. No atomics: the result is
+//      deterministic and bit-equal to the plain version in f32 and bf16.
+//   Bytes: x read, route written and read back, g read, dx written. The
+//   tiled instances (route_tile, gather_tile) take the (3,3,3)/1,
+//   (1,3,3)/(1,2,2), (3,3,3)/2, (2,2,2)/2 and (1,2,2)/(1,2,2) pools on
+//   32-bit plans, designed for bf16 on Hopper:
+//   - V = 8 in bf16 (16-byte vectors, a 64-bit route word), 4 in f32, and
+//     4 in bf16 where C % 8 != 0; the plan checks that x, g and dx are
+//     aligned for the vector (a view may start anywhere) and takes V = 1,
+//     the generic instance, where they are not.
+//   - A block of 256 threads covers CVr vectors (the least power of two
+//     >= C / V, at most 8) x 8 columns x 32 / CVr row groups, so at narrow
+//     C the block takes more pixels and no thread idles (at C = 8 in bf16
+//     a thread owns one pixel's 8 channels).
+//   - The route pass walks K1's tile: each frame's input box is copied
+//     into shared memory once (cp.async, two stages) and each lane reduces
+//     (value, key) pairs W -> H -> T in bf16x2 lanes (max.NaN, compares
+//     that give masks: no widening to f32).
+//   - The gather factors the nested sum by level (every route through a
+//     cell of a stage reaches it by the same (dh, dt)): per output frame
+//     the route bytes and g of the tile's covering outputs are staged in
+//     shared memory once, the W level is computed once per staged row and
+//     column, the H level per thread into a ring of the last KT frames in
+//     registers, and an input frame is summed over T once its last
+//     covering frame is in the ring; an element checks at most 3 windows a
+//     level, not 27. In bf16 a level of at most two terms sums in bf16x2
+//     lanes with a rounded add (equal to rounding the f32 sum).
+//   Every other call (other geometries, V = 1, 64-bit plans), and every
+//   call of the build with RSP_POOL_GENERIC defined, takes the generic
+//   instance, the first design: pool_route and pool_gather, one thread an
+//   element vector, its 27 window loads served by L1.
+//   Measured by chip_smoke.py on an H100 (700 W), bf16, batch 64: the 13
+//   S3D-G sites take 3.9-4.1 ms against the generic instance's 12.3,
+//   aten's backward's 28.4 and a 1.83 ms bound; f32 6.9-7.2 (bound 3.67).
+//   What holds them above the bound: the stride-1 gather's instructions
+//   (three f32 sums of masked lanes a level) and the walks' latency (a
+//   third pipeline stage, or a block a frame, measured no faster).
 //   A window routes to no cell, and its cotangent is dropped, as the JAX
 //   kernel and the plain version drop it, in two cases: (a) it holds a NaN
 //   (its max is NaN, which equals no cell); (b) its max is -inf and its
@@ -394,7 +417,8 @@ __device__ __forceinline__ float round_to(float v) {
   else return v;
 }
 
-// Thread -> element map of both K2 passes: each thread owns one element
+// Thread -> element map of both passes of the generic K2 (pool_route,
+// pool_gather; the first design): each thread owns one element
 // vector (V channels of one pixel), and a block of kThreads covers a tile
 // of 2 (T) x 2 (H) x 4 (W) pixels x 16 vectors, so that the window re-reads
 // of neighbouring threads hit L1. A warp holds 16 vectors of 2 pixels, so
@@ -443,17 +467,17 @@ __device__ __forceinline__ Pos<I> tile_pos(int T, int H, int W, int cv_n) {
   const int kw = KW ? KW : g.kw, st = ST ? ST : g.st;              \
   const int sh = SH ? SH : g.sh, sw = SW ? SW : g.sw;
 
-// K2 pass 1. route[b, to, ho, wo, c..c+V) = dt*9 + dh*3 + dw of the first
-// window cell, in (dw, dh, dt) order, that holds the window max, with the
-// -inf padding counted as cells: the scan starts at offset 0 (kNoRouteByte
-// when that cell is padding) and moves only to strictly greater values, so
-// a window of -inf keeps its start. A lane whose window holds a NaN routes
-// to kNoRouteByte: beside the scan it sums |v|, which is NaN exactly when a
-// NaN was added (one full-rate add a cell; a NaN-propagating max beside
-// the scan made K2 25% slower on the card). Capped at 32 registers (8
-// blocks per SM): the window loads need threads in flight more than
-// registers, and the cap measured faster on the card despite a few spilled
-// words in the (3,3,3) and generic instances.
+// K2 pass 1, generic. route[b, to, ho, wo, c..c+V) = dt*9 + dh*3 + dw of
+// the first window cell, in (dw, dh, dt) order, that holds the window max,
+// with the -inf padding counted as cells: the scan starts at offset 0
+// (kNoRouteByte when that cell is padding) and moves only to strictly
+// greater values, so a window of -inf keeps its start. A lane whose window
+// holds a NaN routes to kNoRouteByte: beside the scan it sums |v|, which is
+// NaN exactly when a NaN was added (one full-rate add a cell; a
+// NaN-propagating max beside the scan made K2 25% slower on the card).
+// Capped at 32 registers (8 blocks per SM): the window loads need threads
+// in flight more than registers, and the cap measured faster on the card
+// despite a few spilled words.
 template <typename T, int V, typename I, RSP_K2_PARAMS>
 __global__ void __launch_bounds__(kThreads, 8)
     pool_route(const T* __restrict__ x, uint8_t* __restrict__ route,
@@ -523,11 +547,12 @@ __device__ __forceinline__ void covering(int i, int n, int k, int s, int p,
   }
 }
 
-// K2 pass 2. dx[b, t, h, w, c..c+V) = the cotangents of the windows whose
-// route names (t, h, w), summed T (outer) / H / W (inner) in window-offset
-// order; a pooled W or H level is rounded to T before it is added up. Per
-// T window that covers the element, the route words of its H x W covering
-// windows are loaded together, then g where some lane's route hits.
+// K2 pass 2, generic. dx[b, t, h, w, c..c+V) = the cotangents of the
+// windows whose route names (t, h, w), summed T (outer) / H / W (inner) in
+// window-offset order; a pooled W or H level is rounded to T before it is
+// added up. Per T window that covers the element, the route words of its
+// H x W covering windows are loaded together, then g where some lane's
+// route hits.
 template <typename T, int V, typename I, RSP_K2_PARAMS>
 __global__ void pool_gather(const uint8_t* __restrict__ route,
                             const T* __restrict__ gout, T* __restrict__ dx,
@@ -612,6 +637,806 @@ __global__ void pool_gather(const uint8_t* __restrict__ route,
   storev<V>(dx + idx * V, acc_t);
 }
 
+// -- K2, tiled instances -----------------------------------------------------
+// prmt.b32 in its default mode: byte n of the result is byte s[n] & 7 of
+// {b, a}, or, where bit 3 of nibble n is set, that byte's bit 7 copied
+// into all eight bits.
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t s) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(s));
+  return d;
+}
+
+// An element vector is held as NW 32-bit words: bf16 packs two lanes in a
+// word (the lower channel in the low half), f32 one. Lanes<T, V> holds the
+// lane arithmetic: every operation is exact (max, compares that yield
+// masks), so bf16 is never widened to f32 to be compared.
+template <typename T, int V>
+struct Lanes;
+
+template <int V>
+struct Lanes<__nv_bfloat16, V> {
+  static constexpr int NW = V / 2;
+  static constexpr uint32_t kNegInf = 0xFF80FF80u;
+  // A route key k < 128 is held as the value 128 + k (bits 0x4300 + k):
+  // exact, ordered as k, and k is its low 7 bits.
+  static constexpr uint32_t kKey0 = 0x43004300u, kKeyOne = 0x00010001u;
+  __device__ __forceinline__ static uint32_t max_nan(uint32_t a, uint32_t b) {
+    uint32_t d;
+    asm("max.NaN.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+    return d;
+  }
+  // 0xFFFF in each half where the comparison holds (false on NaN)
+  __device__ __forceinline__ static uint32_t gt(uint32_t a, uint32_t b) {
+    uint32_t d;
+    asm("set.gt.u32.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+    return d;
+  }
+  __device__ __forceinline__ static uint32_t eq(uint32_t a, uint32_t b) {
+    uint32_t d;
+    asm("set.eq.u32.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+    return d;
+  }
+  __device__ __forceinline__ static uint32_t isnan(uint32_t a) {
+    uint32_t d;
+    asm("set.nan.u32.bf16x2 %0, %1, %1;" : "=r"(d) : "r"(a));
+    return d;
+  }
+  // the smaller of a and b per lane; a NaN loses to a number
+  __device__ __forceinline__ static uint32_t min(uint32_t a, uint32_t b) {
+    uint32_t d;
+    asm("min.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+    return d;
+  }
+  // OR'd into a key: +inf or NaN (a key that no key exceeds), whose low
+  // byte stays below 0xB0 for the keys and offsets added here
+  static constexpr uint32_t kKeyNone = 0x7F807F80u;
+  // The route bytes of the lanes of words key[0..NW) (0x7F where drop is
+  // set), lanes in channel order: key dw*16 + dh*4 + dt becomes the byte
+  // dt*9 + dh*3 + dw.
+  __device__ __forceinline__ static void route_bytes(const uint32_t* key,
+                                                     const uint32_t* drop,
+                                                     uint8_t* p) {
+    uint32_t b[NW];
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+      const uint32_t k = key[j];
+      b[j] = ((k & 0x00030003u) * 9u + (k >> 2 & 0x00030003u) * 3u +
+              (k >> 4 & 0x00030003u)) | (drop[j] & 0x007F007Fu);
+    }
+    if constexpr (NW == 4) {
+      *reinterpret_cast<uint2*>(p) = make_uint2(
+          __byte_perm(b[0], b[1], 0x6420), __byte_perm(b[2], b[3], 0x6420));
+    } else {
+      *reinterpret_cast<uint32_t*>(p) = __byte_perm(b[0], b[1], 0x6420);
+    }
+  }
+  // Value word j with each lane kept where its hit byte (bit 7 of byte l
+  // of the hit words, for lane l) is set, else +0.
+  __device__ __forceinline__ static uint32_t keep(uint32_t w,
+                                                  const uint32_t* hit, int j) {
+    return w & prmt(hit[(2 * j) >> 2], 0, (j & 1) ? 0xBBAA : 0x9988);
+  }
+  // the same as two f32 lanes
+  __device__ __forceinline__ static void masked(uint32_t w, const uint32_t* hit,
+                                                int j, float* f) {
+    const uint32_t x = keep(w, hit, j);
+    f[0] = __uint_as_float(x << 16);
+    f[1] = __uint_as_float(x & 0xFFFF0000u);
+  }
+  // a + b per lane, rounded to nearest even
+  __device__ __forceinline__ static uint32_t add2(uint32_t a, uint32_t b) {
+    uint32_t d;
+    asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+    return d;
+  }
+  __device__ __forceinline__ static uint32_t pack(const float* f) {
+    __nv_bfloat162 r = __floats2bfloat162_rn(f[0], f[1]);
+    return *reinterpret_cast<uint32_t*>(&r);
+  }
+};
+
+template <>
+struct Lanes<float, 4> {
+  static constexpr int NW = 4;
+  static constexpr uint32_t kNegInf = 0xFF800000u;
+  // key k as the f32 value 128 + k: k sits in bits 16..22
+  static constexpr uint32_t kKey0 = 0x43000000u, kKeyOne = 1u << 16;
+  __device__ __forceinline__ static uint32_t max_nan(uint32_t a, uint32_t b) {
+    uint32_t d;
+    asm("max.NaN.f32 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+    return d;
+  }
+  __device__ __forceinline__ static uint32_t gt(uint32_t a, uint32_t b) {
+    uint32_t d;
+    asm("set.gt.u32.f32 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+    return d;
+  }
+  __device__ __forceinline__ static uint32_t eq(uint32_t a, uint32_t b) {
+    uint32_t d;
+    asm("set.eq.u32.f32 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+    return d;
+  }
+  __device__ __forceinline__ static uint32_t isnan(uint32_t a) {
+    uint32_t d;
+    asm("set.nan.u32.f32 %0, %1, %1;" : "=r"(d) : "r"(a));
+    return d;
+  }
+  __device__ __forceinline__ static uint32_t min(uint32_t a, uint32_t b) {
+    uint32_t d;
+    asm("min.f32 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+    return d;
+  }
+  static constexpr uint32_t kKeyNone = 0x7F800000u;
+  __device__ __forceinline__ static void route_bytes(const uint32_t* key,
+                                                     const uint32_t* drop,
+                                                     uint8_t* p) {
+    uint32_t r = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t k = key[j] >> 16;
+      r |= (((k & 3u) * 9u + (k >> 2 & 3u) * 3u + (k >> 4 & 3u)) |
+            (drop[j] & 0x7Fu)) << (8 * j);
+    }
+    *reinterpret_cast<uint32_t*>(p) = r;
+  }
+  __device__ __forceinline__ static void masked(uint32_t w, const uint32_t* hit,
+                                                int j, float* f) {
+    f[0] = __uint_as_float(w & prmt(hit[0], 0, 0x8888 + 0x1111 * j));
+  }
+  __device__ __forceinline__ static uint32_t pack(const float* f) {
+    return __float_as_uint(f[0]);
+  }
+};
+
+// n 32-bit words between shared memory and registers, as one access
+template <int N>
+__device__ __forceinline__ void ld_words(const uint32_t* p, uint32_t* w) {
+  if constexpr (N == 4) {
+    const uint4 r = *reinterpret_cast<const uint4*>(p);
+    w[0] = r.x; w[1] = r.y; w[2] = r.z; w[3] = r.w;
+  } else if constexpr (N == 2) {
+    const uint2 r = *reinterpret_cast<const uint2*>(p);
+    w[0] = r.x; w[1] = r.y;
+  } else {
+    w[0] = *p;
+  }
+}
+template <int N>
+__device__ __forceinline__ void st_words(uint32_t* p, const uint32_t* w) {
+  if constexpr (N == 4) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else if constexpr (N == 2) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+  } else {
+    *p = w[0];
+  }
+}
+
+// 4 * N bytes copied to shared memory without passing through registers.
+template <int N>
+__device__ __forceinline__ void copy_async_words(uint32_t* smem,
+                                                 const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  if constexpr (N == 4)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(gmem)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+                 "l"(gmem), "n"(4 * N)
+                 : "memory");
+}
+
+// A tiled block: kThreads threads as CVr element vectors (CVr = 1 << cvl,
+// up to kMaxCV) x kTileCols pixel columns x (kThreads / (8 * CVr)) groups of
+// RH rows. CVr follows C (the smallest power of two >= C / V, at most 8), so
+// that at narrow C the block covers more pixels and no thread idles: at
+// C / V = 1 a thread owns one pixel's V channels.
+constexpr int kMaxCV = 8, kTileCols = 8;
+
+__host__ __device__ constexpr int tile_rows(int cvl, int rh) {
+  return kThreads / (kTileCols << cvl) * rh;
+}
+// The route pass's box cells a stage (the box at CVr = kMaxCV has the most)
+// and its shared memory in bytes (nw words a vector).
+__host__ __device__ constexpr int route_cells(int kh, int kw, int sh, int sw,
+                                              int rh) {
+  return ((tile_rows(3, rh) - 1) * sh + kh) * ((kTileCols - 1) * sw + kw) *
+         kMaxCV;
+}
+__host__ __device__ constexpr int route_smem(int kh, int kw, int sh, int sw,
+                                             int rh, int nw) {
+  return 2 * route_cells(kh, kw, sh, sw, rh) * nw * 4;
+}
+// The output rows that cover th consecutive input rows (the gather's staged
+// rows), and their most times CVr over every CVr (sizes its buffers).
+__host__ __device__ constexpr int gather_rows(int kh, int sh, int th) {
+  return (th - 1 + kh - 1) / sh + 1;
+}
+__host__ __device__ constexpr int gather_rows_x_cv(int kh, int sh, int rh) {
+  int most = 0;
+  for (int c = 0; c <= 3; ++c) {
+    const int n = gather_rows(kh, sh, tile_rows(c, rh)) << c;
+    most = n > most ? n : most;
+  }
+  return most;
+}
+// The gather's staged output cells a stage, its W level's cells, and its
+// shared memory in bytes (nw / nr value and route words a vector).
+__host__ __device__ constexpr int gather_cells(int kh, int kw, int sh, int sw,
+                                               int rh) {
+  return gather_rows_x_cv(kh, sh, rh) * ((kTileCols - 1 + kw - 1) / sw + 1);
+}
+__host__ __device__ constexpr int gather_wcells(int kh, int sh, int rh) {
+  return gather_rows_x_cv(kh, sh, rh) * kTileCols;
+}
+__host__ __device__ constexpr int gather_smem(int kh, int kw, int sh, int sw,
+                                              int rh, int nw, int nr) {
+  return (2 * gather_cells(kh, kw, sh, sw, rh) + gather_wcells(kh, sh, rh)) *
+         (nw + nr) * 4;
+}
+
+// 1-D index helpers for strides 1 and 2: floor(a / s) and ceil(a / s) for
+// any sign of a, and whether s divides a.
+template <int S>
+__device__ __forceinline__ int floor_div(int a) {
+  static_assert(S == 1 || S == 2, "stride 1 or 2");
+  return S == 1 ? a : a >> 1;
+}
+template <int S>
+__device__ __forceinline__ int ceil_div(int a) {
+  return S == 1 ? a : (a + 1) >> 1;
+}
+template <int S>
+__device__ __forceinline__ bool divides(int a) {
+  return S == 1 || (a & 1) == 0;
+}
+
+// Bit 7 of each byte set where byte & mask equals code & mask (the bytes
+// of x are below 0x80, so 0x80 - x keeps bit 7 exactly where x is 0, and
+// no byte borrows from the next); hit_bytes spreads it over the byte.
+__device__ __forceinline__ uint32_t byte_hits(uint32_t w, uint32_t code,
+                                              uint32_t mask) {
+  return 0x80808080u - ((w ^ code) & mask);
+}
+__device__ __forceinline__ uint32_t hit_bytes(uint32_t h) {
+  return prmt(h, 0, 0xBA98);
+}
+
+// One level of the gather: the kept terms of an element vector summed in
+// window-offset order, in f32 lanes and rounded to T at the end (the plain
+// version's sum, and its store of a stage). PACKED (bf16, at most two
+// terms a level): the same sum in bf16 lanes with a rounded add, which is
+// equal: round(a + b) from an f32 sum is the bf16 sum of a and b, since
+// the f32 sum of two bf16 values is exact or lies within an f32 ulp of
+// the larger, too near it to round elsewhere. Kept terms are +0 where a
+// window routes elsewhere, and adding +0 changes no sum (a sum from +0 is
+// never -0).
+template <typename T, int V, bool PACKED>
+struct LevelSum {
+  using L = Lanes<T, V>;
+  static constexpr int NW = L::NW, LW = V / NW;   // words, lanes a word
+  float acc[V];
+  __device__ __forceinline__ void clear() {
+#pragma unroll
+    for (int l = 0; l < V; ++l) acc[l] = 0.0f;
+  }
+  __device__ __forceinline__ void add(const uint32_t* w, const uint32_t* hit) {
+#pragma unroll
+    for (int k = 0; k < NW; ++k) {
+      float f[LW];
+      L::masked(w[k], hit, k, f);
+#pragma unroll
+      for (int l = 0; l < LW; ++l) acc[k * LW + l] += f[l];
+    }
+  }
+  __device__ __forceinline__ void out(uint32_t* w) const {
+#pragma unroll
+    for (int k = 0; k < NW; ++k) w[k] = L::pack(&acc[k * LW]);
+  }
+};
+
+template <int V>
+struct LevelSum<__nv_bfloat16, V, true> {
+  using L = Lanes<__nv_bfloat16, V>;
+  static constexpr int NW = L::NW;
+  uint32_t acc[NW];
+  __device__ __forceinline__ void clear() {
+#pragma unroll
+    for (int k = 0; k < NW; ++k) acc[k] = 0;
+  }
+  __device__ __forceinline__ void add(const uint32_t* w, const uint32_t* hit) {
+#pragma unroll
+    for (int k = 0; k < NW; ++k)
+      acc[k] = L::add2(acc[k], L::keep(w[k], hit, k));
+  }
+  __device__ __forceinline__ void out(uint32_t* w) const {
+#pragma unroll
+    for (int k = 0; k < NW; ++k) w[k] = acc[k];
+  }
+};
+
+// K2 pass 1, tiled (the (3,3,3)/1, (1,3,3)/(1,2,2), (3,3,3)/2, (2,2,2)/2
+// and (1,2,2)/(1,2,2) pools, V = 4 or 8). The block and frame walk of
+// pool_fwd_tile: an output tile of TH x 8 pixels x CVr vectors; each
+// frame's input box ((TH-1)*SH+KH) x (7*SW+KW) pixels is copied once into
+// shared memory (cp.async, two stages; cells outside the tensor hold
+// -inf). Each lane reduces (value, key) pairs, key = dw*16 + dh*4 + dt
+// (the offsets as base-4 digits, so keys order as (dw, dh, dt)): the
+// larger value wins, on equal values the smaller key. That reduction is
+// associative, so W (a strict > scan in dw order, whose keys rise), then
+// H, then T (over the last KT frames, in registers), each taken as the
+// max and then the least key among the pairs equal to it, give the
+// lexicographically first cell in (dw, dh, dt) order that holds the
+// window max: the route of the strict scan of pool_route. The -inf cells
+// of the box take part with their keys, so a window whose max is -inf
+// ends on key 0; it routes nowhere when that cell is padding, and so does
+// a window whose max is NaN (max.NaN carries it; no compare holds).
+template <typename T, int V, RSP_K2_PARAMS, int RH>
+__global__ void __launch_bounds__(kThreads, 2)
+    route_tile(const T* __restrict__ x, uint8_t* __restrict__ route, Geom g,
+               int cvl) {
+  using L = Lanes<T, V>;
+  constexpr int NW = L::NW, TW = kTileCols;
+  constexpr int BW = (TW - 1) * SW + KW;
+  constexpr int CELLS = route_cells(KH, KW, SH, SW, RH);
+  constexpr int PER = (CELLS + kThreads - 1) / kThreads;
+  constexpr int ROWS = (RH - 1) * SH + KH;       // box rows of a thread
+  // dynamic shared memory (route_smem bytes): the box, two stages
+  extern __shared__ __align__(16) uint32_t smem[];
+  auto box = [&](int stage) { return smem + stage * CELLS * NW; };
+
+  const int tid = threadIdx.x, cvr = 1 << cvl;
+  const int th = tile_rows(cvl, RH);
+  const int cells = ((th - 1) * SH + KH) * BW << cvl;
+  const int cv_n = g.C / V;
+  const int ncc = (cv_n + cvr - 1) >> cvl;
+  const int wt = blockIdx.x / ncc, cc = blockIdx.x - wt * ncc;
+  const int ht = blockIdx.y, b = blockIdx.z;
+  const int h0 = ht * th * SH - g.ph, w0 = wt * TW * SW - g.pw;
+  const int c0 = cc << cvl;
+
+  // The box cells this thread copies, as element offsets in a frame; -1
+  // for a cell it does not copy. A cell outside the tensor holds -inf in
+  // both stages from the start.
+  int src[PER];
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int i = tid + j * kThreads;
+    src[j] = -1;
+    if (i >= cells) continue;
+    const int v = i & (cvr - 1), px = i >> cvl;
+    const int h = h0 + px / BW, w = w0 + px % BW;
+    if (h >= 0 && h < g.H && w >= 0 && w < g.W) {
+      if (c0 + v < cv_n) src[j] = (h * g.W + w) * g.C + (c0 + v) * V;
+    } else {
+#pragma unroll
+      for (int k = 0; k < NW; ++k) {
+        box(0)[i * NW + k] = L::kNegInf;
+        box(1)[i * NW + k] = L::kNegInf;
+      }
+    }
+  }
+
+  const int frame = g.H * g.W * g.C;
+  const T* clip = x + b * g.T * frame;
+  auto load = [&](int t, int stage) {
+    const T* f = clip + t * frame;
+#pragma unroll
+    for (int j = 0; j < PER; ++j)
+      if (src[j] >= 0)
+        copy_async_words<NW>(&box(stage)[(tid + j * kThreads) * NW],
+                             f + src[j]);
+  };
+
+  const int v = tid & (cvr - 1), col = (tid >> cvl) % TW;
+  const int row0 = (tid >> cvl) / TW * RH;
+  const int wo = wt * TW + col, ho0 = ht * th + row0;
+  const bool store = c0 + v < cv_n && wo < g.Wo;
+  // offset 0 of the window in W lies in the tensor (not in the padding)
+  const bool w_in0 = wo * SW - g.pw >= 0 && wo * SW - g.pw < g.W;
+
+  // The pair reduction of n (value, key) pairs, keys offset by off * i
+  // key units for pair i: the max, and the least key among the pairs equal
+  // to it (a pair below the max, or every pair when the max is NaN, offers
+  // a key of +inf or NaN, which min passes over).
+  auto reduce = [](uint32_t (*v)[NW], uint32_t (*kv)[NW], int n, int stride,
+                   uint32_t off, uint32_t* m, uint32_t* mk) {
+#pragma unroll
+    for (int k = 0; k < NW; ++k) {
+      m[k] = v[0][k];
+#pragma unroll
+      for (int i = 1; i < 3; ++i)
+        if (i < n) m[k] = L::max_nan(m[k], v[i * stride][k]);
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+        if (i < n) {
+          const uint32_t key = (kv[i * stride][k] + i * off) |
+                               (~L::eq(v[i * stride][k], m[k]) & L::kKeyNone);
+          mk[k] = i == 0 ? key : L::min(mk[k], key);
+        }
+    }
+  };
+
+  // ring[d]: the (value, key) pair of the H x W window of frame
+  // t - (KT - 1) + d, for this thread's rows; keys without the dt term
+  uint32_t ring[KT][RH][NW], ringk[KT][RH][NW];
+#pragma unroll
+  for (int d = 0; d < KT; ++d)
+#pragma unroll
+    for (int r = 0; r < RH; ++r)
+#pragma unroll
+      for (int k = 0; k < NW; ++k) {
+        ring[d][r][k] = L::kNegInf;
+        ringk[d][r][k] = L::kKey0;
+      }
+
+  // frames are walked from the first window's first frame to the last
+  // window's last frame, the next one loading while one is reduced; a
+  // frame outside [0, T) is -inf and is not loaded
+  const int t_first = -g.pt, t_last = (g.To - 1) * ST - g.pt + KT - 1;
+  if (t_first >= 0) load(t_first, 0);
+  copy_commit();
+  for (int t = t_first; t <= t_last; ++t) {
+    const int stage = (t - t_first) & 1;
+    if (t + 1 <= t_last && t + 1 >= 0 && t + 1 < g.T) load(t + 1, stage ^ 1);
+    copy_commit();
+    copy_wait_prev();
+    __syncthreads();
+#pragma unroll
+    for (int d = 0; d + 1 < KT; ++d)
+#pragma unroll
+      for (int r = 0; r < RH; ++r)
+#pragma unroll
+        for (int k = 0; k < NW; ++k) {
+          ring[d][r][k] = ring[d + 1][r][k];
+          ringk[d][r][k] = ringk[d + 1][r][k];
+        }
+    if (t >= 0 && t < g.T) {
+      // W: a strict > scan over KW columns of each of the thread's box rows
+      uint32_t rowv[ROWS][NW], rowk[ROWS][NW];
+#pragma unroll
+      for (int rr = 0; rr < ROWS; ++rr) {
+        const uint32_t* cell =
+            &box(stage)[((((row0 * SH + rr) * BW + col * SW) << cvl) + v) * NW];
+        ld_words<NW>(cell, rowv[rr]);
+#pragma unroll
+        for (int k = 0; k < NW; ++k) rowk[rr][k] = L::kKey0;
+#pragma unroll
+        for (int dw = 1; dw < KW; ++dw) {
+          uint32_t c[NW];
+          ld_words<NW>(cell + ((dw * NW) << cvl), c);
+#pragma unroll
+          for (int k = 0; k < NW; ++k) {
+            const uint32_t m = L::gt(c[k], rowv[rr][k]);
+            rowv[rr][k] = L::max_nan(rowv[rr][k], c[k]);
+            rowk[rr][k] = (m & (L::kKey0 + 16 * dw * L::kKeyOne)) |
+                          (~m & rowk[rr][k]);
+          }
+        }
+      }
+      // H: KH rows for each output row, keys + dh*4
+#pragma unroll
+      for (int r = 0; r < RH; ++r)
+        reduce(&rowv[r * SH], &rowk[r * SH], KH, 1, 4 * L::kKeyOne,
+               ring[KT - 1][r], ringk[KT - 1][r]);
+    } else {
+#pragma unroll
+      for (int r = 0; r < RH; ++r)
+#pragma unroll
+        for (int k = 0; k < NW; ++k) {
+          ring[KT - 1][r][k] = L::kNegInf;
+          ringk[KT - 1][r][k] = L::kKey0;
+        }
+    }
+    // T: output frame to ends with frame t
+    const int j = t + g.pt - (KT - 1);
+    if (store && j >= 0 && j % ST == 0) {
+      const int to = j / ST;
+      const bool t_in0 = j - g.pt >= 0 && j - g.pt < g.T;
+#pragma unroll
+      for (int r = 0; r < RH; ++r) {
+        const int ho = ho0 + r;
+        if (ho >= g.Ho) continue;
+        uint32_t m[NW], mk[NW];
+        reduce(&ring[0][r], &ringk[0][r], KT, RH, L::kKeyOne, m, mk);
+        const int h_first = ho * SH - g.ph;
+        const bool in0 = t_in0 && w_in0 && h_first >= 0 && h_first < g.H;
+        uint32_t drop[NW];
+#pragma unroll
+        for (int k = 0; k < NW; ++k)
+          drop[k] = L::isnan(m[k]) | (in0 ? 0u : L::eq(m[k], L::kNegInf));
+        L::route_bytes(mk, drop,
+                       route + (((b * g.To + to) * g.Ho + ho) * g.Wo + wo) *
+                                   g.C + (c0 + v) * V);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// The route byte dt*9 + dh*3 + dw of each lane of a route word, rewritten
+// as dw | dh << 2 | dt << 4 (digit by digit, no byte carries into the
+// next: every byte is < 128). kNoRouteByte becomes a byte whose low two
+// bits are 3, which matches no dw.
+__device__ __forceinline__ uint32_t route_digits(uint32_t r) {
+  const uint32_t dt = ((r + 0x77777777u) >> 7 & 0x01010101u) +   // >= 9
+                      ((r + 0x6E6E6E6Eu) >> 7 & 0x01010101u);    // >= 18
+  const uint32_t r2 = r - dt * 9u;
+  const uint32_t dh = ((r2 + 0x7D7D7D7Du) >> 7 & 0x01010101u) +  // >= 3
+                      ((r2 + 0x7A7A7A7Au) >> 7 & 0x01010101u);   // >= 6
+  return (r2 - dh * 3u) | dh << 2 | dt << 4;
+}
+
+// a bool as a type, to pick a branch of a generic lambda at compile time
+template <bool B>
+struct Flag {
+  static constexpr bool value = B;
+};
+
+// K2 pass 2, tiled: the gather of the plain version's stages. Composed
+// W -> H -> T, every output that routes through a cell of an intermediate
+// stage reaches it by the same (dh, dt) (the first match of that cell's
+// H x T column), so the nested sum of pool_gather factors by level:
+//   gW(to, ho, w) = sum over dw of g(to, ho, wo) where the route's dw is
+//                   dw; its tag is the (dh, dt) of those routes;
+//   gH(to, h, w)  = sum over dh of round(gW(to, ho, w)) where gW's dh is dh;
+//   dx(t, h, w)   = sum over dt of round(gH(to, h, w)) where gH's dt is dt;
+// each in window-offset order, each pooled level rounded to T (as the plain
+// version stores each stage). A cell reached by no route holds 0 and tag 0,
+// and adding +0 changes no sum, so the levels test no bounds. Per level an
+// element checks at most 3 windows (27 without the factoring).
+// The block owns an input tile of TH x 8 pixels x CVr vectors and walks its
+// clip by output frame: each output frame's route bytes and g over the
+// tile's covering outputs (the tile plus a halo of KH-1 rows and KW-1
+// columns at stride 1, about half the tile at stride 2) are copied once
+// into shared memory (cp.async, two stages), the route bytes rewritten by
+// route_digits. The W level is computed once per staged row and column of
+// the tile into shared memory, the H level per thread for its RH rows into
+// a ring of the last KT output frames in registers, and an input frame is
+// summed over T and stored once its last covering output frame is in the
+// ring. No atomics.
+template <typename T, int V, RSP_K2_PARAMS, int RH>
+__global__ void __launch_bounds__(kThreads, 3)
+    gather_tile(const uint8_t* __restrict__ route, const T* __restrict__ gout,
+                T* __restrict__ dx, Geom g, int cvl) {
+  using L = Lanes<T, V>;
+  constexpr int NW = L::NW, NR = V / 4;       // value and route words
+  // bf16 levels of at most two terms each sum in bf16 lanes
+  constexpr bool kPacked = sizeof(T) == 2 && (KT + ST - 1) / ST <= 2 &&
+                           (KH + SH - 1) / SH <= 2 && (KW + SW - 1) / SW <= 2;
+  using Sum = LevelSum<T, V, kPacked>;
+  constexpr int TW = kTileCols;
+  constexpr int BWO = (TW - 1 + KW - 1) / SW + 1;   // staged output columns
+  constexpr int CELLS = gather_cells(KH, KW, SH, SW, RH);
+  constexpr int WCELLS = gather_wcells(KH, SH, RH);
+  constexpr int PER = (CELLS + kThreads - 1) / kThreads;
+  // dynamic shared memory (gather_smem bytes): g and the route bytes of
+  // the staged outputs, two stages each, then the W level's values and tags
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t* const sg0 = smem;
+  uint32_t* const sr0 = sg0 + 2 * CELLS * NW;
+  uint32_t* const swv = sr0 + 2 * CELLS * NR;
+  uint32_t* const swt = swv + WCELLS * NW;
+  auto sg = [&](int stage) { return sg0 + stage * CELLS * NW; };
+  auto sr = [&](int stage) { return sr0 + stage * CELLS * NR; };
+
+  const int tid = threadIdx.x, cvr = 1 << cvl;
+  const int th = tile_rows(cvl, RH);
+  const int bho = gather_rows(KH, SH, th);
+  const int cells = bho * BWO << cvl;
+  const int cv_n = g.C / V;
+  const int ncc = (cv_n + cvr - 1) >> cvl;
+  const int wt = blockIdx.x / ncc, cc = blockIdx.x - wt * ncc;
+  const int b = blockIdx.z;
+  const int h0 = blockIdx.y * th, w0 = wt * TW, c0 = cc << cvl;
+  // the first staged output row and column
+  const int hoA = ceil_div<SH>(h0 + g.ph - (KH - 1));
+  const int woA = ceil_div<SW>(w0 + g.pw - (KW - 1));
+
+  // The staged cells this thread copies, as element offsets in an output
+  // frame (the same in g and route); -1 for a cell it does not copy. A cell
+  // outside the output holds the digits of no route in both stages.
+  int src[PER];
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int i = tid + j * kThreads;
+    src[j] = -1;
+    if (i >= cells) continue;
+    const int v = i & (cvr - 1), px = i >> cvl;
+    const int ho = hoA + px / BWO, wo = woA + px % BWO;
+    if (ho >= 0 && ho < g.Ho && wo >= 0 && wo < g.Wo && c0 + v < cv_n) {
+      src[j] = (ho * g.Wo + wo) * g.C + (c0 + v) * V;
+    } else {
+#pragma unroll
+      for (int k = 0; k < NR; ++k) {
+        sr(0)[i * NR + k] = 0x03030303u;
+        sr(1)[i * NR + k] = 0x03030303u;
+      }
+    }
+  }
+
+  const int oframe = g.Ho * g.Wo * g.C;
+  const T* gclip = gout + b * g.To * oframe;
+  const uint8_t* rclip = route + b * g.To * oframe;
+  auto load = [&](int to, int stage) {
+#pragma unroll
+    for (int j = 0; j < PER; ++j)
+      if (src[j] >= 0) {
+        const int i = tid + j * kThreads;
+        copy_async_words<NW>(&sg(stage)[i * NW], gclip + to * oframe + src[j]);
+        copy_async_words<NR>(&sr(stage)[i * NR], rclip + to * oframe + src[j]);
+      }
+  };
+
+  const int v = tid & (cvr - 1), col = (tid >> cvl) % TW;
+  const int rg = (tid >> cvl) / TW;
+  const int w = w0 + col;
+  const bool store = c0 + v < cv_n && w < g.W;
+  // the W level's map: column cwl, rows wrow + nr * i (nr = 32 / CVr)
+  const int nr = kThreads / (TW << cvl);
+  const int cwl = tid >> 5, wrow = (tid >> cvl) & (nr - 1), cw = w0 + cwl;
+
+  // ring[d]: gH of output frame to - d for this thread's rows (in T), and
+  // the dt digits of its routes (bits 4-5 of each byte)
+  uint32_t ring[KT][RH][NW], ringt[KT][RH][NR];
+#pragma unroll
+  for (int d = 0; d < KT; ++d)
+#pragma unroll
+    for (int r = 0; r < RH; ++r) {
+#pragma unroll
+      for (int k = 0; k < NW; ++k) ring[d][r][k] = 0;
+#pragma unroll
+      for (int k = 0; k < NR; ++k) ringt[d][r][k] = 0;
+    }
+  int t_next = 0;                       // the next input frame to store
+
+  load(0, 0);
+  copy_commit();
+  for (int to = 0; to < g.To; ++to) {
+    const int stage = to & 1;
+    if (to + 1 < g.To) load(to + 1, stage ^ 1);
+    copy_commit();
+    copy_wait_prev();
+#pragma unroll
+    for (int j = 0; j < PER; ++j)
+      if (src[j] >= 0) {
+        uint32_t* p = &sr(stage)[(tid + j * kThreads) * NR];
+#pragma unroll
+        for (int k = 0; k < NR; ++k) p[k] = route_digits(p[k]);
+      }
+    __syncthreads();
+    // W: gW and its (dh, dt) tag for every staged row and tile column;
+    // thread (v, a) takes column a / nr and rows a % nr, + nr, ... (nr a
+    // power of two), so that a warp shares a column and skips the windows
+    // that do not cover it together
+    for (int hr = wrow; hr < bho; hr += nr) {
+      Sum acc;
+      uint32_t tag[NR];
+      acc.clear();
+#pragma unroll
+      for (int k = 0; k < NR; ++k) tag[k] = 0;
+#pragma unroll
+      for (int dw = 0; dw < KW; ++dw) {
+        const int num = cw + g.pw - dw;
+        if (!divides<SW>(num)) continue;
+        const int cell = (((hr * BWO + floor_div<SW>(num) - woA)) << cvl) + v;
+        uint32_t rb[NR], gv[NW], hit[NR];
+        ld_words<NR>(&sr(stage)[cell * NR], rb);
+        ld_words<NW>(&sg(stage)[cell * NW], gv);
+#pragma unroll
+        for (int k = 0; k < NR; ++k) {
+          hit[k] = byte_hits(rb[k], dw * 0x01010101u, 0x03030303u);
+          tag[k] |= rb[k] & 0x3C3C3C3Cu & hit_bytes(hit[k]);
+        }
+        acc.add(gv, hit);
+      }
+      // rounded to T: a pooled level as the plain version stores it, an
+      // unpooled one holds one g or 0, which T holds exactly
+      uint32_t out[NW];
+      acc.out(out);
+      const int wc = ((hr * TW + cwl) << cvl) + v;
+      st_words<NW>(&swv[wc * NW], out);
+      st_words<NR>(&swt[wc * NR], tag);
+    }
+    __syncthreads();
+    // H: gH for this thread's rows, pushed into the ring
+#pragma unroll
+    for (int d = KT - 1; d > 0; --d)
+#pragma unroll
+      for (int r = 0; r < RH; ++r) {
+#pragma unroll
+        for (int k = 0; k < NW; ++k) ring[d][r][k] = ring[d - 1][r][k];
+#pragma unroll
+        for (int k = 0; k < NR; ++k) ringt[d][r][k] = ringt[d - 1][r][k];
+      }
+#pragma unroll
+    for (int r = 0; r < RH; ++r) {
+      const int h = h0 + rg * RH + r;
+      Sum acc;
+      uint32_t tag[NR];
+      acc.clear();
+#pragma unroll
+      for (int k = 0; k < NR; ++k) tag[k] = 0;
+#pragma unroll
+      for (int dh = 0; dh < KH; ++dh) {
+        const int num = h + g.ph - dh;
+        if (!divides<SH>(num)) continue;
+        const int cell = ((((floor_div<SH>(num) - hoA)) * TW + col) << cvl) + v;
+        uint32_t tw[NR], gv[NW], hit[NR];
+        ld_words<NR>(&swt[cell * NR], tw);
+        ld_words<NW>(&swv[cell * NW], gv);
+#pragma unroll
+        for (int k = 0; k < NR; ++k) {
+          hit[k] = byte_hits(tw[k], (dh << 2) * 0x01010101u, 0x0C0C0C0Cu);
+          tag[k] |= tw[k] & 0x30303030u & hit_bytes(hit[k]);
+        }
+        acc.add(gv, hit);
+      }
+      acc.out(ring[0][r]);
+#pragma unroll
+      for (int k = 0; k < NR; ++k) ringt[0][r][k] = tag[k];
+    }
+    // T: store every input frame whose last covering output frame is to
+    // (at the last output frame, every frame left, the floor tail as 0)
+    int t_end = (to + 1) * ST - g.pt - 1;
+    if (to == g.To - 1 || t_end > g.T - 1) t_end = g.T - 1;
+    for (; t_next <= t_end; ++t_next) {
+      const int t = t_next;
+      // the ring slot of window offset dt is to - (t + pt - dt) / ST; at
+      // stride 1 in the walk's steady state it is dt, known at compile
+      // time (no select among the slots)
+      const bool steady = ST == 1 && to - t - g.pt == 0;
+      auto sum_t = [&](auto fixed, int r, uint32_t* out) {
+        Sum acc;
+        acc.clear();
+#pragma unroll
+        for (int dt = 0; dt < KT; ++dt) {
+          const int num = t + g.pt - dt;
+          if (num < 0 || !divides<ST>(num) || floor_div<ST>(num) > to)
+            continue;
+          const int d = decltype(fixed)::value ? dt : to - floor_div<ST>(num);
+          uint32_t gv[NW], tt[NR], hit[NR];
+#pragma unroll
+          for (int dd = 0; dd < KT; ++dd)
+            if (dd == d) {
+#pragma unroll
+              for (int k = 0; k < NW; ++k) gv[k] = ring[dd][r][k];
+#pragma unroll
+              for (int k = 0; k < NR; ++k) tt[k] = ringt[dd][r][k];
+            }
+#pragma unroll
+          for (int k = 0; k < NR; ++k)
+            hit[k] = byte_hits(tt[k], (dt << 4) * 0x01010101u, 0x30303030u);
+          acc.add(gv, hit);
+        }
+        acc.out(out);
+      };
+#pragma unroll
+      for (int r = 0; r < RH; ++r) {
+        const int h = h0 + rg * RH + r;
+        if (!store || h >= g.H) continue;
+        uint32_t out[NW];
+        if constexpr (KT == 1 && ST == 1) {
+          // an unpooled T (pt = 0): the input frame is output frame to
+#pragma unroll
+          for (int k = 0; k < NW; ++k) out[k] = ring[0][r][k];
+        } else if (steady) {
+          sum_t(Flag<true>(), r, out);
+        } else {
+          sum_t(Flag<false>(), r, out);
+        }
+        st_words<NW>(reinterpret_cast<uint32_t*>(
+                         dx + (((b * g.T + t) * g.H + h) * g.W + w) * g.C +
+                         (c0 + v) * V),
+                     out);
+      }
+    }
+    __syncthreads();
+  }
+}
+
 int64_t grid_for(int64_t work) {
   int64_t blocks = (work + kThreads - 1) / kThreads;
   if (blocks > (int64_t)1 << 30) blocks = (int64_t)1 << 30;
@@ -643,10 +1468,10 @@ Geom make_geom(const int64_t* shape, const int* kspec) {
 }
 
 // The launch plan shared by every kernel of one call: element type, vector
-// width (4 when C allows 16-byte / 8-byte vectors) and index width.
+// width and index width.
 struct Plan {
   int dtype;     // 0 = f32, 1 = bf16
-  bool vec4;
+  int vec;       // elements a vector: 8 (bf16 only), 4 or 1
   bool wide;     // some tensor has >= 2^31 elements
 };
 
@@ -697,7 +1522,7 @@ template <typename T>
 void fwd_dispatch(const Plan& pl, const void* x, void* out, const Geom& g,
                   cudaStream_t st) {
 #ifndef RSP_POOL_GENERIC
-  if (pl.vec4 && !pl.wide) {
+  if (pl.vec >= 4 && !pl.wide) {
     if (geometry_is(g, 1, 3, 3, 1, 2, 2) &&
         fwd_tile<T, 1, 3, 3, 1, 2, 2, 4>(x, out, g, st))
       return;
@@ -712,7 +1537,7 @@ void fwd_dispatch(const Plan& pl, const void* x, void* out, const Geom& g,
       return;
   }
 #endif
-  if (pl.vec4) {
+  if (pl.vec >= 4) {
     if (pl.wide) fwd_t<T, 4, int64_t>(x, out, g, st);
     else fwd_t<T, 4, int32_t>(x, out, g, st);
   } else {
@@ -745,25 +1570,87 @@ int bwd_t(const void* x, const void* gout, void* dx, void* route,
   return (int)cudaGetLastError();
 }
 
-// Compile-time instances for the pool geometries of S3D-G (V = 4, 32-bit
-// plans); any other call takes the generic instance, and so does every call
-// of a build with RSP_POOL_GENERIC defined (chip_smoke.py times the two).
+// The tiled K2 (route_tile, then gather_tile) for one geometry; false,
+// launching nothing, when its grid passes the limits. RHR / RHG: rows of a
+// thread in the route and gather passes.
+template <typename T, int V, RSP_K2_PARAMS, int RHR, int RHG>
+bool bwd_tile(const void* x, const void* gout, void* dx, void* route,
+              const Geom& g, cudaStream_t st) {
+  const int cv_n = g.C / V;
+  int cvl = 0;
+  while (cvl < 3 && (1 << cvl) < cv_n) ++cvl;
+  const int64_t ncc = (cv_n + (1 << cvl) - 1) >> cvl;
+  const int thr = tile_rows(cvl, RHR), thg = tile_rows(cvl, RHG);
+  const int64_t xr = ncc * ((g.Wo + kTileCols - 1) / kTileCols);
+  const int64_t xg = ncc * ((g.W + kTileCols - 1) / kTileCols);
+  const int64_t yr = (g.Ho + thr - 1) / thr, yg = (g.H + thg - 1) / thg;
+  if (xr >= ((int64_t)1 << 31) || xg >= ((int64_t)1 << 31) || yr > 65535 ||
+      yg > 65535 || g.B > 65535)
+    return false;
+  constexpr int NW = Lanes<T, V>::NW;
+  constexpr int kSmemR = route_smem(KH, KW, SH, SW, RHR, NW);
+  constexpr int kSmemG = gather_smem(KH, KW, SH, SW, RHG, NW, V / 4);
+  // above 48 KB a kernel must ask for its dynamic shared memory, once
+  static const bool sized =
+      cudaFuncSetAttribute(route_tile<T, V, RSP_K2_ARGS, RHR>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kSmemR) == cudaSuccess &&
+      cudaFuncSetAttribute(gather_tile<T, V, RSP_K2_ARGS, RHG>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kSmemG) == cudaSuccess;
+  if (!sized) return false;
+  route_tile<T, V, RSP_K2_ARGS, RHR>
+      <<<dim3((unsigned)xr, (unsigned)yr, g.B), kThreads, kSmemR, st>>>(
+          static_cast<const T*>(x), static_cast<uint8_t*>(route), g, cvl);
+  gather_tile<T, V, RSP_K2_ARGS, RHG>
+      <<<dim3((unsigned)xg, (unsigned)yg, g.B), kThreads, kSmemG, st>>>(
+          static_cast<const uint8_t*>(route), static_cast<const T*>(gout),
+          static_cast<T*>(dx), g, cvl);
+  return true;
+}
+
+// The tiled instances at one vector width, by geometry; false when the
+// geometry has none (or its grid does not fit).
+template <typename T, int V>
+bool bwd_tiled(const void* x, const void* gout, void* dx, void* route,
+               const Geom& g, cudaStream_t st) {
+  if (geometry_is(g, 3, 3, 3, 1, 1, 1))
+    return bwd_tile<T, V, 3, 3, 3, 1, 1, 1, 2, 2>(x, gout, dx, route, g, st);
+  if (geometry_is(g, 1, 3, 3, 1, 2, 2)) {
+    // the stems' gather: 4 rows a thread where CVr = 8 (measured faster;
+    // at narrow C the tile is tall already)
+    if (g.C / V >= kMaxCV)
+      return bwd_tile<T, V, 1, 3, 3, 1, 2, 2, 1, 4>(x, gout, dx, route, g, st);
+    return bwd_tile<T, V, 1, 3, 3, 1, 2, 2, 1, 2>(x, gout, dx, route, g, st);
+  }
+  if (geometry_is(g, 3, 3, 3, 2, 2, 2))
+    return bwd_tile<T, V, 3, 3, 3, 2, 2, 2, 1, 2>(x, gout, dx, route, g, st);
+  if (geometry_is(g, 2, 2, 2, 2, 2, 2))
+    return bwd_tile<T, V, 2, 2, 2, 2, 2, 2, 1, 2>(x, gout, dx, route, g, st);
+  if (geometry_is(g, 1, 2, 2, 1, 2, 2))
+    return bwd_tile<T, V, 1, 2, 2, 1, 2, 2, 1, 2>(x, gout, dx, route, g, st);
+  return false;
+}
+
+// Every call with a tiled instance (a 32-bit plan, V = 8 in bf16 or 4)
+// takes it; any other call takes the generic instance (today's two
+// passes, pool_route + pool_gather with every window parameter read at run
+// time), and so does every call of a build with RSP_POOL_GENERIC defined
+// (chip_smoke.py times the two).
 template <typename T>
 int bwd_dispatch(const Plan& pl, const void* x, const void* gout, void* dx,
                  void* route, const Geom& g, cudaStream_t st) {
 #ifndef RSP_POOL_GENERIC
-  if (pl.vec4 && !pl.wide) {
-    if (geometry_is(g, 1, 3, 3, 1, 2, 2))
-      return bwd_t<T, 4, int32_t, 1, 3, 3, 1, 2, 2>(x, gout, dx, route, g, st);
-    if (geometry_is(g, 3, 3, 3, 1, 1, 1))
-      return bwd_t<T, 4, int32_t, 3, 3, 3, 1, 1, 1>(x, gout, dx, route, g, st);
-    if (geometry_is(g, 3, 3, 3, 2, 2, 2))
-      return bwd_t<T, 4, int32_t, 3, 3, 3, 2, 2, 2>(x, gout, dx, route, g, st);
-    if (geometry_is(g, 2, 2, 2, 2, 2, 2))
-      return bwd_t<T, 4, int32_t, 2, 2, 2, 2, 2, 2>(x, gout, dx, route, g, st);
+  if (!pl.wide) {
+    bool done = false;
+    if constexpr (sizeof(T) == 2) {
+      if (pl.vec == 8) done = bwd_tiled<T, 8>(x, gout, dx, route, g, st);
+    }
+    if (pl.vec == 4) done = bwd_tiled<T, 4>(x, gout, dx, route, g, st);
+    if (done) return (int)cudaGetLastError();
   }
 #endif
-  if (pl.vec4) {
+  if (pl.vec >= 4) {
     if (pl.wide)
       return bwd_t<T, 4, int64_t, 0, 0, 0, 0, 0, 0>(x, gout, dx, route, g, st);
     return bwd_t<T, 4, int32_t, 0, 0, 0, 0, 0, 0>(x, gout, dx, route, g, st);
@@ -773,10 +1660,25 @@ int bwd_dispatch(const Plan& pl, const void* x, const void* gout, void* dx,
   return bwd_t<T, 1, int32_t, 0, 0, 0, 0, 0, 0>(x, gout, dx, route, g, st);
 }
 
-Plan make_plan(int dtype, const Geom& g) {
+bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// The plan of a call on tensors at ptrs[0..n): the widest vector, up to
+// max_vec elements, that divides C and at which every tensor is aligned
+// for a vector access (a view may start anywhere in its storage); a call
+// that fits none takes V = 1.
+Plan make_plan(int dtype, const Geom& g, const void* const* ptrs, int n,
+               int max_vec) {
   Plan pl;
   pl.dtype = dtype;
-  pl.vec4 = g.C % 4 == 0;
+  const int esize = dtype == 0 ? 4 : 2;
+  pl.vec = 1;
+  for (int v = max_vec; v >= 4 && pl.vec == 1; v /= 2) {
+    bool ok = g.C % v == 0;
+    for (int i = 0; i < n; ++i) ok = ok && aligned(ptrs[i], v * esize);
+    if (ok) pl.vec = v;
+  }
   // input or output (k = 2, p = 1 makes an axis one longer)
   const int64_t in = (int64_t)g.B * g.T * g.H * g.W * g.C;
   const int64_t out = (int64_t)g.B * g.To * g.Ho * g.Wo * g.C;
@@ -793,7 +1695,9 @@ extern "C" {
 int rsp_maxpool3d_fwd(const void* x, void* out, int dtype,
                       const int64_t* shape, const int* kspec, void* stream) {
   Geom g = make_geom(shape, kspec);
-  fwd(make_plan(dtype, g), x, out, g, static_cast<cudaStream_t>(stream));
+  const void* ptrs[2] = {x, out};
+  fwd(make_plan(dtype, g, ptrs, 2, 4), x, out, g,
+      static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }
 
@@ -804,7 +1708,8 @@ int rsp_maxpool3d_bwd(const void* x, const void* g, void* dx, void* route,
                       int dtype, const int64_t* shape, const int* kspec,
                       void* stream) {
   Geom geo = make_geom(shape, kspec);
-  Plan pl = make_plan(dtype, geo);
+  const void* ptrs[3] = {x, g, dx};
+  Plan pl = make_plan(dtype, geo, ptrs, 3, dtype == 0 ? 4 : 8);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (pl.dtype == 0) return bwd_dispatch<float>(pl, x, g, dx, route, geo, st);
   return bwd_dispatch<__nv_bfloat16>(pl, x, g, dx, route, geo, st);

@@ -117,6 +117,9 @@ def build_all(names: List[str] = None) -> Dict[str, Path]:
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded kernel library ``name``, built on first use."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
     with _lock:
         lib = _libs.get(name)
         if lib is None:

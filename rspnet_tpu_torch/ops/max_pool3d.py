@@ -25,10 +25,13 @@ thread. Every max propagates NaN, as ``torch.maximum`` does. The
 backward is two launches. Composed W -> H
 -> T, the first-match rule sends each output's cotangent to one input, and
 a route pass writes that input's window offset as one byte per output
-element. A gather pass then gives each thread one input element, which
-adds, in window-offset order, the cotangents whose route names it, with one
-nested accumulator per axis (and, in bf16, the plain version's rounding of
-each stage). No atomics and no stage buffers: it is deterministic and
+element. A gather pass then sums, for each input element, the cotangents
+whose route names it, in the order of the plain version's stages (and, in
+bf16, with its rounding of each stage). At the pool geometries of S3D-G,
+ResNet-3D and the non-local blocks, on 16-byte (bf16: 8-channel) vectors,
+both passes walk a tile in shared memory and the gather sums level by
+level (W, H, T); any other call takes the first design, one thread per
+element vector and its whole window. No atomics: it is deterministic and
 equal bit for bit to ``max_pool3d_bwd_plain`` in f32 and bf16. See
 ``csrc/max_pool3d.cu``.
 
@@ -68,6 +71,7 @@ raises.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Sequence, Tuple
 
 import torch
@@ -87,11 +91,16 @@ launches_by_dtype = {f"{name}.{dtype}": 0 for name in launches
 plain_cuda_calls = {"max_pool3d_fwd": 0, "max_pool3d_bwd": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# launches_by_dtype's key of each (wrapper, dtype)
+_DTYPE_KEYS = {(name, dtype): f"{name}.{str(dtype).split('.')[-1]}"
+               for name in launches for dtype in _DTYPES}
 
 
 def _triple(v) -> Triple:
     if isinstance(v, int):
         return (v, v, v)
+    if type(v) is tuple:        # the autograd Function passes tuples
+        return v
     return tuple(int(a) for a in v)
 
 
@@ -212,8 +221,10 @@ def _geometry_args(shape, k, s, p):
     return shape_arr, kspec
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def _stream(t: torch.Tensor) -> int:
+    """The current stream's handle on t's card, by the raw query (no Stream
+    object is built: a small pool's call is host-bound)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def _ptr(t: torch.Tensor) -> int:
@@ -222,12 +233,33 @@ def _ptr(t: torch.Tensor) -> int:
 
 def _count(name: str, dtype: torch.dtype) -> None:
     launches[name] += 1
-    launches_by_dtype[f"{name}.{str(dtype).split('.')[-1]}"] += 1
+    launches_by_dtype[_DTYPE_KEYS[name, dtype]] += 1
 
 
 def _out_shape(shape, k, s, p):
     return (shape[0], *(out_len(d, kk, ss, pp) for d, kk, ss, pp in
                         zip(shape[1:4], k, s, p)), shape[4])
+
+
+# (shape, k, s, p) -> (output shape, output elements, ctypes shape, ctypes
+# kspec, whether no axis pools) of the checked geometries: a backward call
+# on a known geometry builds nothing (its host time is what launches a
+# small pool's kernels)
+_geometries = {}
+
+
+def _checked_geometry(shape, k, s, p):
+    key = (tuple(shape), k, s, p)
+    got = _geometries.get(key)
+    if got is None:
+        check_geometry(shape, k, s, p)
+        if len(_geometries) > 4096:
+            _geometries.clear()
+        oshape = _out_shape(shape, k, s, p)
+        got = _geometries[key] = (
+            oshape, math.prod(oshape), *_geometry_args(shape, k, s, p),
+            all(_trivial(*a) for a in zip(k, s, p)))
+    return got
 
 
 def max_pool3d_fwd(x: torch.Tensor, k, s, p, *,
@@ -244,7 +276,7 @@ def max_pool3d_fwd(x: torch.Tensor, k, s, p, *,
     lib = _build.library(build)
     shape_arr, kspec = _geometry_args(x.shape, k, s, p)
     err = lib.rsp_maxpool3d_fwd(_ptr(x), _ptr(out), _DTYPES[x.dtype],
-                                shape_arr, kspec, _stream())
+                                shape_arr, kspec, _stream(x))
     _build.check(err, "rsp_maxpool3d_fwd")
     _count("max_pool3d_fwd", x.dtype)
     return out
@@ -255,8 +287,8 @@ def max_pool3d_bwd(x: torch.Tensor, g: torch.Tensor, k, s, p, *,
     """K2: dx of the NDHWC max pool for cotangent g (first-match routing).
     ``build`` names the kernel library (``_build.VARIANTS``)."""
     k, s, p = _triple(k), _triple(s), _triple(p)
-    check_geometry(x.shape, k, s, p)
-    oshape = _out_shape(x.shape, k, s, p)
+    oshape, route_bytes, shape_arr, kspec, trivial = _checked_geometry(
+        x.shape, k, s, p)
     if tuple(g.shape) != oshape:
         raise ValueError(f"cotangent {tuple(g.shape)} != pool out {oshape}")
     if not x.is_cuda:
@@ -265,14 +297,19 @@ def max_pool3d_bwd(x: torch.Tensor, g: torch.Tensor, k, s, p, *,
     _check_cuda(g, "max_pool3d_bwd g")
     if g.dtype != x.dtype or not g.is_cuda:
         raise TypeError("max_pool3d_bwd: g must match x's dtype and device")
-    if all(_trivial(*a) for a in zip(k, s, p)):
+    if trivial:
         raise ValueError("max_pool3d_bwd: nothing to pool")
-    route = torch.empty(oshape, dtype=torch.uint8, device=x.device)
-    dx = torch.empty_like(x)
+    # dx and the route scratch (one byte an output element) in one
+    # allocation, the route after dx (aligned for any vector: dx's bytes
+    # are a multiple of C times the element size)
+    n, esize = x.numel(), x.element_size()
+    buf = torch.empty(n + -(-route_bytes // esize), dtype=x.dtype,
+                      device=x.device)
+    dx = buf[:n].view(x.shape)
     lib = _build.library(build)
-    shape_arr, kspec = _geometry_args(x.shape, k, s, p)
-    err = lib.rsp_maxpool3d_bwd(_ptr(x), _ptr(g), _ptr(dx), _ptr(route),
-                                _DTYPES[x.dtype], shape_arr, kspec, _stream())
+    err = lib.rsp_maxpool3d_bwd(_ptr(x), _ptr(g), _ptr(dx),
+                                _ptr(buf) + n * esize, _DTYPES[x.dtype],
+                                shape_arr, kspec, _stream(x))
     _build.check(err, "rsp_maxpool3d_bwd")
     _count("max_pool3d_bwd", x.dtype)
     return dx
