@@ -12,7 +12,9 @@ Phases, each printing its own lines:
      and at small shapes no site has (the generic instances, the
      one-channel path, the compile-time instances at other paddings and
      planes and, for K2's tiled instances, at C = 8 and 16 and the 7²
-     non-local pool), f32 and bf16, with and without ties, both
+     non-local pool; for K1's, at (1,2,2)/(1,2,2) and (2,1,1)/(2,1,1), a
+     tall C = 8 stem and a frame walk split into chunks), f32 and bf16,
+     with and without ties, both
      bit-equal; K1/K2 (both builds) on inputs that hold NaN and -inf, and
      K2 on inputs whose corner windows are all -inf, NaN where the plain
      version has NaN and bit-equal elsewhere; K1/K2 on two tensors of over
@@ -27,10 +29,17 @@ Phases, each printing its own lines:
   3. timing with CUDA events at the main path's shapes, beside the bound,
      the plain version and the library; K1/K2 in f32 and in bf16 (the
      main path's dtype), each also held bit-equal to its plain version
-     there (K1 at the fused key pass's batch 128 too, both dtypes), and
-     their compile-time instances are timed against their generic
-     instances (the max_pool3d_generic build), K2 also against aten's
-     backward (a ``K2<=aten`` flag a site); K3's resident instance
+     there (K1 at the fused key pass's batch 128 too: f32 checked, bf16
+     checked and timed beside batch 64), and their compile-time instances
+     are timed against their generic instances (the max_pool3d_generic
+     build), K1 also against F.max_pool3d (a ``K1<=lib`` flag a site, and
+     where a tiled instance takes the site, ``tile<=1.05 generic``, from
+     the kernels' device times in a CUDA graph where a call takes under
+     50 us and is host-bound; each
+     K1 line names its launch, ``fwd_plan``, and a last line counts the
+     sites where either flag is False), K2 against aten's backward (a
+     ``K2<=aten`` flag a site); K1's host time a call at a 7^2 site with
+     the device idle, beside F.max_pool3d's; K3's resident instance
      against its generic one (the color_augment_generic build), u8 and
      f32, with its grid, and where its time goes clip by clip (the
      color_augment_timeline build, ``ops/k3_timeline.py``);
@@ -230,6 +239,15 @@ EXTRA_POOL_SITES = [
     ("tile.stem_c16", (4, 28, 28, 16), (1, 3, 3), (1, 2, 2), (0, 1, 1)),
     ("tile.branch3_c8", (4, 14, 14, 8), (3, 3, 3), (1, 1, 1), (1, 1, 1)),
     ("tile.nl_7x7", (2, 7, 7, 64), (1, 2, 2), (1, 2, 2), (0, 0, 0)),
+    # K1's tiled instances at (1,2,2)/(1,2,2) with a floor tail in W, at
+    # (2,1,1)/(2,1,1) with one in T, a bf16 C = 8 stem on a tall ragged
+    # plane, and a 7^2 frame whose walk is split at the batch of phase 2
+    # (To = 2, a chunk a frame)
+    ("tile.c3d_pool1_c64", (4, 28, 31, 64), (1, 2, 2), (1, 2, 2),
+     (0, 0, 0)),
+    ("tile.c2d_pool1", (5, 9, 10, 16), (2, 1, 1), (2, 1, 1), (0, 0, 0)),
+    ("tile.stem_c8_tall", (3, 57, 55, 8), (1, 3, 3), (1, 2, 2), (0, 1, 1)),
+    ("tile.split_7x7", (4, 7, 7, 832), (3, 3, 3), (2, 2, 2), (1, 1, 1)),
 ]
 # ([B, T, H, W, C], kernel, stride, padding, dtype) of tensors with 2^31 or
 # more elements: the 64-bit index plans of K1 and K2, on the four-channel
@@ -239,14 +257,17 @@ WIDE_POOL_SITES = [
     ((43, 16, 1024, 1024, 3), (3, 3, 3), (1, 1, 1), (1, 1, 1), "bfloat16"),
 ]
 # sites whose inputs hold NaN and -inf (phase 2): each K1 instance (the
-# four S3D-G geometries, also at their edge cases) and the generic one
+# four S3D-G geometries, also at their edge cases, (1,2,2)/(1,2,2) and
+# (2,1,1)/(2,1,1), a C = 8 stem, a split frame walk) and the generic one
 # (C % 4 != 0, another geometry); K2's tiled instances at C = 8 and 16
 # (bf16: one and two vectors a pixel) and at the non-local pool
 NAN_POOL_SITES = ("maxPool1", "sepInc_3b.branch3", "maxPool_sepInc_4b",
                   "maxPool_sepInc_5b", "sepInc_5b.branch3", "odd.floor_tail",
                   "generic.mixed", "tile.floor_tail", "tile.k2_p1",
                   "tile.branch3_p0", "tile.stem_odd", "tile.stem_c8",
-                  "tile.stem_c16", "tile.branch3_c8", "tile.nl_7x7")
+                  "tile.stem_c16", "tile.branch3_c8", "tile.nl_7x7",
+                  "tile.c3d_pool1_c64", "tile.c2d_pool1",
+                  "tile.stem_c8_tall", "tile.split_7x7")
 GENERIC = "max_pool3d_generic"   # the build without compile-time instances
 K3_TOL = 1e-4
 COLOR_CLIP = (32, 224, 224)     # [T, H, W] of a K3 clip on the main path
@@ -408,6 +429,43 @@ def time_ms(fn, iters: int = 5, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def time_calls_ms(fn) -> float:
+    """time_ms over 20 calls after 5 to warm up (with 5 after 2, the first
+    site of a phase ran up to 17% slow, the card coming back from the
+    plain version's host-bound calls), or over 200 where a call takes
+    under 50 us: there the call's host time is its time, and its noise
+    needs more calls to average out."""
+    t = time_ms(fn, 20, 5)
+    return time_ms(fn, 200, 5) if t < 0.05 else t
+
+
+def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """The device time of one call of fn: ``calls`` calls captured in a
+    CUDA graph, replayed ``replays`` times between two events (no host
+    time between the kernels)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
+
+
 def bound(nbytes: float, ops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
@@ -496,6 +554,9 @@ def check_pool_nan(dev, batch: int) -> None:
                 dref = mp.max_pool3d_bwd_plain(x, g, k, s, p)
                 # the cotangent the plain version drops (NaN and pad routes)
                 dropped = float(g.double().sum() - dref.double().sum())
+                launch = {b: fwd_plan_text(mp.fwd_plan(x.shape, k, s, p,
+                                                       dtype, build=b))
+                          for b in ("max_pool3d", GENERIC)}
                 for build in ("max_pool3d", GENERIC):
                     ok_f, n_f = (same(mp.max_pool3d_fwd(x, k, s, p,
                                                         build=build), ref)
@@ -505,8 +566,8 @@ def check_pool_nan(dev, batch: int) -> None:
                     print(f"check K1/K2 {case:4s} {name:20s} {str(dtype):15s}"
                           f" {build:18s} fwd nan {n_f}/{ref.numel()} same "
                           f"{ok_f} | bwd nan {n_b}, dropped g sum "
-                          f"{dropped:.4g}, same NaN mask and values {ok_b}",
-                          flush=True)
+                          f"{dropped:.4g}, same NaN mask and values {ok_b}"
+                          f" | K1 {launch[build]}", flush=True)
                     require(ok_f and ok_b,
                             f"K1/K2 {case} {name} {dtype} {build}: differs "
                             f"from the plain version (fwd {ok_f}, bwd "
@@ -749,6 +810,16 @@ def check_pool_fwd(dev, batch: int, sites=POOL_SITES,
     torch.cuda.empty_cache()
 
 
+def fwd_plan_text(plan: dict) -> str:
+    """K1's launch (ops/max_pool3d.py:fwd_plan) in words."""
+    if not plan["rows"]:
+        return f"generic instance, V {plan['vec']}"
+    return (f"tiled, V {plan['vec']}, {plan['rows']} rows a thread, CVr "
+            f"{1 << plan['cvl']}, {plan['chunks']} frame chunks of "
+            f"{plan['frames_per_chunk']}, grid {plan['grid_x']}x"
+            f"{plan['grid_y']}x{plan['grid_z']}")
+
+
 def time_pool(dev, batch: int, dtype_name: str, sites=POOL_SITES,
               backward: bool = True) -> dict:
     """K1 (and K2 unless not ``backward``) at every site of ``sites`` (the
@@ -765,6 +836,11 @@ def time_pool(dev, batch: int, dtype_name: str, sites=POOL_SITES,
         keys += ("bwd", "bwd_again", "bwd_generic", "bwd_plain", "bwd_lib",
                  "bwd_bound")
     tot = {k: 0.0 for k in keys}
+    # K1's sites: how many, at how many it is slower than F.max_pool3d,
+    # how many a tiled instance takes, at how many of those it is slower
+    # than 1.05 times the generic instance
+    flags = {"sites": 0, "slower_than_lib": 0, "tiled_sites": 0,
+             "tile_over_1.05_generic": 0}
     by = {}
     dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -779,12 +855,17 @@ def time_pool(dev, batch: int, dtype_name: str, sites=POOL_SITES,
                   mp.max_pool3d_fwd(x, k, s, p, build=generic), fref)}
         del fref
         xn = x.permute(0, 4, 1, 2, 3)          # NCDHW view, channels-last
-        # the compile-time instance, the generic one, the first again
-        f = time_ms(lambda: mp.max_pool3d_fwd(x, k, s, p))
-        fg = time_ms(lambda: mp.max_pool3d_fwd(x, k, s, p, build=generic))
-        f2 = time_ms(lambda: mp.max_pool3d_fwd(x, k, s, p))
+        # the compile-time instance, the generic one, the library, each
+        # twice in turns (time_calls_ms)
+        f = time_calls_ms(lambda: mp.max_pool3d_fwd(x, k, s, p))
+        fg = time_calls_ms(lambda: mp.max_pool3d_fwd(x, k, s, p,
+                                                     build=generic))
+        fl = time_calls_ms(lambda: F.max_pool3d(xn, k, s, p))
+        f2 = time_calls_ms(lambda: mp.max_pool3d_fwd(x, k, s, p))
+        fg = min(fg, time_calls_ms(lambda: mp.max_pool3d_fwd(
+            x, k, s, p, build=generic)))
+        fl = min(fl, time_calls_ms(lambda: F.max_pool3d(xn, k, s, p)))
         fp = time_ms(lambda: mp.max_pool3d_fwd_plain(x, k, s, p), 2, 1)
-        fl = time_ms(lambda: F.max_pool3d(xn, k, s, p))
         window = k[0] * k[1] * k[2]
         esize = x.element_size()
         fb, fby = bound((x.numel() + out.numel()) * esize,
@@ -792,8 +873,32 @@ def time_pool(dev, batch: int, dtype_name: str, sites=POOL_SITES,
         by["fwd"] = fby
         times = {"fwd": f, "fwd_again": f2, "fwd_generic": fg,
                  "fwd_plain": fp, "fwd_lib": fl, "fwd_bound": fb}
+        # K1's launch here, and its time against F.max_pool3d and (a tiled
+        # instance) against its generic instance. Where a call takes under
+        # 50 us it is host-bound: its time is the wrapper's host time,
+        # which both instances share (10-19 us a call on the card
+        # machine, same build, same site, from one turn to the next), so
+        # the instances are compared by their kernels' device times
+        plan = mp.fwd_plan(x.shape, k, s, p, dtype)
+        k1 = min(f, f2)
+        flags["sites"] += 1
+        flags["slower_than_lib"] += k1 > fl
+        versus = ""
+        if plan["rows"]:
+            tile_ok = k1 <= 1.05 * fg
+            if k1 < 0.05:
+                kd = graph_ms(lambda: mp.max_pool3d_fwd(x, k, s, p))
+                gd = graph_ms(lambda: mp.max_pool3d_fwd(x, k, s, p,
+                                                        build=generic))
+                tile_ok = kd <= 1.05 * gd
+                versus = (f", device time {kd * 1e3:.2f} us, the generic "
+                          f"instance's {gd * 1e3:.2f}")
+            flags["tiled_sites"] += 1
+            flags["tile_over_1.05_generic"] += not tile_ok
+            versus += f", tile<=1.05 generic {tile_ok}"
         line = (f"K1 {f:.4f} ms (again {f2:.4f}, generic instance {fg:.4f}, "
-                f"bound {fb:.4f}, plain {fp:.3f}, F.max_pool3d {fl:.4f})")
+                f"bound {fb:.4f}, plain {fp:.3f}, F.max_pool3d {fl:.4f}, "
+                f"K1<=lib {k1 <= fl}, {fwd_plan_text(plan)}{versus})")
         if backward:
             g = torch.randn(out.shape, generator=gen, device=dev).to(dtype)
             dref = mp.max_pool3d_bwd_plain(x, g, k, s, p)
@@ -845,7 +950,41 @@ def time_pool(dev, batch: int, dtype_name: str, sites=POOL_SITES,
               f"bound {tot['bwd_bound']:.4f}", flush=True)
     torch.cuda.empty_cache()
     tot["by"] = by
+    tot["k1_flags"] = flags
     return tot
+
+
+def time_host(dev) -> None:
+    """K1's host time a call at a 7^2 site with the device idle (its kernel
+    is shorter than the call, so the host clock over back-to-back calls is
+    the call's host time: the floor of a small pool), beside
+    F.max_pool3d's, at the visualization's f32 and the main path's bf16
+    batch."""
+    import torch
+    import torch.nn.functional as F
+    from rspnet_tpu_torch.ops import max_pool3d as mp
+
+    def host_us(fn, n: int = 2000) -> float:
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        t = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return t / n * 1e6
+
+    name, shape4, k, s, p = POOL_SITES[-1]
+    for batch, dtype in ((VIS_BATCH, torch.float32),
+                         (MAIN_BATCH, torch.bfloat16)):
+        x = torch.randn((batch, *shape4), device=dev).to(dtype)
+        xn = x.permute(0, 4, 1, 2, 3)
+        k1 = host_us(lambda: mp.max_pool3d_fwd(x, k, s, p))
+        lib = host_us(lambda: F.max_pool3d(xn, k, s, p))
+        print(f"time K1 host a call, {name} [{batch},"
+              f"{','.join(map(str, shape4))}] {dtype}, device idle: "
+              f"{k1:.2f} us (F.max_pool3d {lib:.2f} us)", flush=True)
 
 
 def ptxas_lines(log: str, entry: str):
@@ -2520,8 +2659,17 @@ def main(argv=None) -> int:
         check_color(dev, FT_BATCH, (FT_FRAMES, 224, 224), resident=False))
     check_color_repeat(dev, MAIN_BATCH, COLOR_CLIP)
 
-    check_pool_fwd(dev, batch=2 * MAIN_BATCH)                     # phase 3
+    check_pool_fwd(dev, 2 * MAIN_BATCH, dtypes=("float32",))      # phase 3
     pool = {d: time_pool(dev, MAIN_BATCH, d) for d in ("float32", "bfloat16")}
+    # K1 at the fused key pass's shapes (2B clips), the other half of its
+    # main-path launches
+    pool_key = time_pool(dev, 2 * MAIN_BATCH, "bfloat16", backward=False)
+    print(f"time K1 bf16 over the {len(POOL_SITES)} S3D-G sites: batch "
+          f"{MAIN_BATCH} {pool['bfloat16']['fwd']:.4f} ms (bound "
+          f"{pool['bfloat16']['fwd_bound']:.4f}), batch {2 * MAIN_BATCH} (the "
+          f"fused key pass) {pool_key['fwd']:.4f} ms (bound "
+          f"{pool_key['fwd_bound']:.4f})", flush=True)
+    time_host(dev)
     color = time_color(dev, batch=MAIN_BATCH, frames=32, size=224)
     torch.cuda.empty_cache()
     from rspnet_tpu_torch.ops import k3_timeline
@@ -2583,6 +2731,14 @@ def main(argv=None) -> int:
     # key batch is the main path's 64), K3 on the rank's clips
     pool_zoo["multirank"] = time_pool(dev, P13_BATCH, "bfloat16")
     color_zoo["multirank"] = time_color(dev, P13_BATCH, 32, 224)
+    flags = {}
+    for tot in (*pool.values(), pool_key, pool_ft, *pool_zoo.values()):
+        for key, n in tot["k1_flags"].items():
+            flags[key] = flags.get(key, 0) + n
+    print(f"K1 over phase 3's {flags['sites']} timed sites: slower than "
+          f"F.max_pool3d at {flags['slower_than_lib']}; a tiled instance "
+          f"at {flags['tiled_sites']}, slower than 1.05 times the generic "
+          f"instance at {flags['tile_over_1.05_generic']}", flush=True)
 
     with tempfile.TemporaryDirectory() as exp:
         trained = main_path(MAIN_BATCH, os.path.join(exp, "train"),  # 4

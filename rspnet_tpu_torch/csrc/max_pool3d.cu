@@ -13,28 +13,39 @@
 // NaN), as the plain version's torch.maximum and the JAX pool's jnp.maximum
 // do.
 //
-// - Forward (K1). What held the first design (one thread per output pixel
-//   and 4 channels, the whole window from global memory) above its bytes
-//   was the window re-reads, not DRAM: at stride 1 each output made 27
-//   16-byte loads, and the H and T neighbours of a window lay in other
-//   blocks, so most re-reads went to L2. The tiled design (pool_fwd_tile)
-//   gives a block an output tile of TH x 8 pixels x 8 element vectors
-//   (32 channels) and walks it through the clip frame by frame. Each
-//   frame's input box, ((TH-1)*sh+kh) x (7*sw+kw) pixels of the tile's
-//   channels, is copied once into shared memory (cp.async, two stages, so
-//   the next frame loads while this one is reduced); cells outside the
-//   tensor hold -inf and never win. Each thread then takes the max along
-//   W, then H, for its output column and TH/4 rows, from shared memory,
-//   and along T in registers over the last kt frames. An input vector
-//   thus comes from L2 about box/tile times (1.56 at (3,3,3)/1, no T
-//   halo), and a stride-1 output costs 6 shared-memory reads instead of
-//   27 loads. The max is exact, so the W -> H -> T order changes no bit.
-//   Compile-time instances for the four pool geometries of S3D-G (V = 4,
-//   32-bit plans); pool_fwd, the first design, is the generic instance
-//   for every other call. Measured by chip_smoke.py on an H100 (700 W),
-//   f32, batch 64: the 13 S3D-G sites take 2.68-2.72 ms against the
-//   generic instance's 4.82-4.84 and a 2.15 ms bound; the nine stride-1
-//   sites about 1.0 ms (bound 0.76), the four strided ones 1.6 (1.39).
+// - Forward (K1), one launch. The bound is x read once and out written
+//   once. What held the first design (pool_fwd: one thread an output
+//   vector, its whole window from global memory) above it were the window
+//   re-reads: 27 loads an output at stride 1, most of them from L2. The
+//   tiled instances (max_tile) walk K2's route tile (walk_tile): a block
+//   owns an output tile of th x 8 pixels x CVr element vectors, each
+//   frame's input box is copied once into shared memory (cp.async, two
+//   stages), and each lane takes the max W -> H from the box and T over a
+//   ring of its last KT frames in registers, then stores 16 bytes a row.
+//   Designed for bf16 on Hopper:
+//   - V = 8 in bf16 (16-byte copies and stores; cp.async.cg), 4 in f32,
+//     4 in bf16 where C % 8 != 0; the plan checks that x and out are
+//     aligned for the vector and takes V = 1 (the generic instance) where
+//     they are not;
+//   - the max in the lanes' own type, max.NaN.bf16x2 or max.NaN.f32 on
+//     32-bit words from shared memory: nothing is widened to f32. The max
+//     is exact, so the W -> H -> T order changes no bit;
+//   - K2's C-adaptive thread map (tile_rows): at C = 8 in bf16 a thread
+//     owns one pixel's 8 channels and the tile is 32 rows tall;
+//   - instances for S3D-G's four geometries, (1,2,2)/(1,2,2) (C3D's pool1,
+//     the non-local pools) and (2,1,1)/(2,1,1) (C2D / I3D's pool1);
+//   - a small tile grid (under 1.5 blocks an SM) splits each clip's frame
+//     walk into chunks of output frames, one block a chunk, each walking
+//     its own frames and a halo of KT - ST frames (fwd_tile_plan).
+//   What holds it above its bound: the box's halo rows and columns, read
+//   from L2 by the next tile (1.56 times the input at (3,3,3)/1), a
+//   ragged last channel chunk (C = 480, 528), and at small pools the
+//   host's call (about 12-16 us; a 7^2 site's kernel takes 3-8 us).
+//   Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 (700 W), bf16,
+//   batch 64: the 13 S3D-G sites take 1.27-1.32 ms against a 1.074 ms
+//   bound (the tile designed for f32, before: 1.62-1.65; the generic
+//   instance 4.36-4.43); at the fused key pass's batch 128 2.46-2.47
+//   (bound 2.148); f32 2.47-2.49 (bound 2.148).
 // - Backward (K2), two launches. Composed W -> H -> T, the first-match rule
 //   sends each output's cotangent to exactly one input: the
 //   lexicographically first in-bounds cell, in (dw, dh, dt) order, that
@@ -60,10 +71,10 @@
 //     >= C / V, at most 8) x 8 columns x 32 / CVr row groups, so at narrow
 //     C the block takes more pixels and no thread idles (at C = 8 in bf16
 //     a thread owns one pixel's 8 channels).
-//   - The route pass walks K1's tile: each frame's input box is copied
-//     into shared memory once (cp.async, two stages) and each lane reduces
-//     (value, key) pairs W -> H -> T in bf16x2 lanes (max.NaN, compares
-//     that give masks: no widening to f32).
+//   - The route pass is K1's walk (walk_tile) with another op: each
+//     frame's input box is copied into shared memory once (cp.async, two
+//     stages) and each lane reduces (value, key) pairs W -> H -> T in
+//     bf16x2 lanes (max.NaN, compares that give masks: no widening).
 //   - The gather factors the nested sum by level (every route through a
 //     cell of a stage reaches it by the same (dh, dt)): per output frame
 //     the route bytes and g of the tile's covering outputs are staged in
@@ -169,7 +180,7 @@ __device__ __forceinline__ float max_nan(float a, float b) {
 
 // out[b, to, ho, wo, c..c+V) = max over the window; pad cells are skipped
 // (they hold -inf in the reference and never win). The generic instance of
-// K1: every call that pool_fwd_tile does not take.
+// K1: every call that max_tile does not take.
 template <typename T, int V, typename I>
 __global__ void pool_fwd(const T* __restrict__ x, T* __restrict__ out,
                          Geom g) {
@@ -204,176 +215,6 @@ __global__ void pool_fwd(const T* __restrict__ x, T* __restrict__ out,
       }
     }
     storev<V>(out + idx * V, m);
-  }
-}
-
-// -- K1, tiled ---------------------------------------------------------------
-// 16-byte (f32) or 8-byte (bf16) element vector copied to shared memory
-// without passing through registers.
-template <typename T>
-__device__ __forceinline__ void copy_async(T* smem, const T* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  if constexpr (sizeof(T) == 4)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-                 "l"(gmem)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
-                 "l"(gmem)
-                 : "memory");
-}
-__device__ __forceinline__ void copy_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// waits for all but the newest committed group
-__device__ __forceinline__ void copy_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// Output tile of one block: TH (template) x kFwdTW pixels x kFwdCV element
-// vectors of 4 channels. Thread tid owns vector tid % kFwdCV of output
-// column tid / kFwdCV % kFwdTW, and TH / 4 consecutive output rows from
-// row tid / (kFwdCV * kFwdTW) * TH / 4.
-constexpr int kFwdCV = 8, kFwdTW = 8;
-
-// out[b, :, ht*TH .. +TH, wt*8 .. +8, 32 channels of chunk cc] for the
-// block (blockIdx.x = wt * ncc + cc, blockIdx.y = ht, blockIdx.z = b):
-// frames are walked in order from the first window's first frame (-pt) to
-// the last window's last frame; a frame outside [0, T) is -inf and is not
-// loaded. Output frame to is written once its last frame, to*st - pt +
-// kt - 1, has been reduced.
-template <typename T, int KT, int KH, int KW, int ST, int SH, int SW, int TH>
-__global__ void __launch_bounds__(kThreads)
-    pool_fwd_tile(const T* __restrict__ x, T* __restrict__ out, Geom g) {
-  constexpr int V = 4, CV = kFwdCV, TW = kFwdTW;
-  constexpr int RH = TH * TW * CV / kThreads;    // output rows of a thread
-  static_assert(RH * kThreads == TH * TW * CV, "tile != block");
-  constexpr int BH = (TH - 1) * SH + KH, BW = (TW - 1) * SW + KW;
-  constexpr int CELLS = BH * BW * CV;            // box vectors of a frame
-  constexpr int PER = (CELLS + kThreads - 1) / kThreads;
-  constexpr int ROWS = (RH - 1) * SH + KH;       // box rows of a thread
-  __shared__ __align__(16) T box[2][CELLS * V];
-
-  const int tid = threadIdx.x;
-  const int cv_n = g.C / V;
-  const int ncc = (cv_n + CV - 1) / CV;
-  const int wt = blockIdx.x / ncc, cc = blockIdx.x - wt * ncc;
-  const int ht = blockIdx.y, b = blockIdx.z;
-  const int h0 = ht * TH * SH - g.ph, w0 = wt * TW * SW - g.pw;
-  const int c0 = cc * CV;
-
-  // The box cells this thread copies, as element offsets in a frame (the
-  // same in every frame); -1 for a cell it does not copy. A cell outside
-  // the tensor holds -inf in both stages from the start.
-  int src[PER];
-#pragma unroll
-  for (int j = 0; j < PER; ++j) {
-    const int i = tid + j * kThreads;
-    src[j] = -1;
-    if (i >= CELLS) continue;
-    const int v = i % CV, px = i / CV;
-    const int h = h0 + px / BW, w = w0 + px % BW;
-    if (h >= 0 && h < g.H && w >= 0 && w < g.W) {
-      if (c0 + v < cv_n) src[j] = (h * g.W + w) * g.C + (c0 + v) * V;
-    } else {
-      const float inf[V] = {-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F,
-                            -CUDART_INF_F};
-      storev<V>(&box[0][i * V], inf);
-      storev<V>(&box[1][i * V], inf);
-    }
-  }
-
-  const int frame = g.H * g.W * g.C;
-  const T* clip = x + b * g.T * frame;
-  auto load = [&](int t, int stage) {
-    const T* f = clip + t * frame;
-#pragma unroll
-    for (int j = 0; j < PER; ++j)
-      if (src[j] >= 0) copy_async(&box[stage][(tid + j * kThreads) * V],
-                                  f + src[j]);
-  };
-
-  const int v = tid % CV, col = tid / CV % TW, row0 = tid / (CV * TW) * RH;
-  const int wo = wt * TW + col, ho0 = ht * TH + row0;
-  const bool store = c0 + v < cv_n && wo < g.Wo;
-  T* dst = out + (((b * g.To) * g.Ho + ho0) * g.Wo + wo) * g.C +
-           (c0 + v) * V;
-  const int oframe = g.Ho * g.Wo * g.C;
-
-  // ring[d]: the H x W max of frame t - (KT - 1) + d, for this thread's rows
-  float ring[KT][RH][V];
-#pragma unroll
-  for (int d = 0; d < KT; ++d)
-#pragma unroll
-    for (int r = 0; r < RH; ++r)
-#pragma unroll
-      for (int l = 0; l < V; ++l) ring[d][r][l] = -CUDART_INF_F;
-
-  const int t_first = -g.pt, t_last = (g.To - 1) * ST - g.pt + KT - 1;
-  if (t_first >= 0) load(t_first, 0);
-  copy_commit();
-  for (int t = t_first; t <= t_last; ++t) {
-    const int stage = (t - t_first) & 1;
-    if (t + 1 <= t_last && t + 1 >= 0 && t + 1 < g.T) load(t + 1, stage ^ 1);
-    copy_commit();
-    copy_wait_prev();
-    __syncthreads();
-#pragma unroll
-    for (int d = 0; d + 1 < KT; ++d)
-#pragma unroll
-      for (int r = 0; r < RH; ++r)
-#pragma unroll
-        for (int l = 0; l < V; ++l) ring[d][r][l] = ring[d + 1][r][l];
-    if (t >= 0 && t < g.T) {
-      // W: the max of KW columns in each of the thread's box rows
-      float rowm[ROWS][V];
-#pragma unroll
-      for (int rr = 0; rr < ROWS; ++rr) {
-        const T* cell =
-            &box[stage][(((row0 * SH + rr) * BW + col * SW) * CV + v) * V];
-        loadv<V>(cell, rowm[rr]);
-#pragma unroll
-        for (int dw = 1; dw < KW; ++dw) {
-          float c[V];
-          loadv<V>(cell + dw * CV * V, c);
-#pragma unroll
-          for (int l = 0; l < V; ++l) rowm[rr][l] = max_nan(rowm[rr][l], c[l]);
-        }
-      }
-      // H: the max of KH rows for each output row
-#pragma unroll
-      for (int r = 0; r < RH; ++r)
-#pragma unroll
-        for (int l = 0; l < V; ++l) {
-          float m = rowm[r * SH][l];
-#pragma unroll
-          for (int dh = 1; dh < KH; ++dh) m = max_nan(m, rowm[r * SH + dh][l]);
-          ring[KT - 1][r][l] = m;
-        }
-    } else {
-#pragma unroll
-      for (int r = 0; r < RH; ++r)
-#pragma unroll
-        for (int l = 0; l < V; ++l) ring[KT - 1][r][l] = -CUDART_INF_F;
-    }
-    // T: output frame to ends with frame t
-    const int j = t + g.pt - (KT - 1);
-    if (store && j >= 0 && j % ST == 0) {
-      const int to = j / ST;
-#pragma unroll
-      for (int r = 0; r < RH; ++r) {
-        if (ho0 + r >= g.Ho) continue;
-        float m[V];
-#pragma unroll
-        for (int l = 0; l < V; ++l) {
-          m[l] = ring[0][r][l];
-#pragma unroll
-          for (int d = 1; d < KT; ++d) m[l] = max_nan(m[l], ring[d][r][l]);
-        }
-        storev<V>(dst + to * oframe + r * g.Wo * g.C, m);
-      }
-    }
-    __syncthreads();
   }
 }
 
@@ -828,6 +669,14 @@ __device__ __forceinline__ void copy_async_words(uint32_t* smem,
                  : "memory");
 }
 
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// waits for all but the newest committed group
+__device__ __forceinline__ void copy_wait_prev() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
 // A tiled block: kThreads threads as CVr element vectors (CVr = 1 << cvl,
 // up to kMaxCV) x kTileCols pixel columns x (kThreads / (8 * CVr)) groups of
 // RH rows. CVr follows C (the smallest power of two >= C / V, at most 8), so
@@ -957,34 +806,34 @@ struct LevelSum<__nv_bfloat16, V, true> {
   }
 };
 
-// K2 pass 1, tiled (the (3,3,3)/1, (1,3,3)/(1,2,2), (3,3,3)/2, (2,2,2)/2
-// and (1,2,2)/(1,2,2) pools, V = 4 or 8). The block and frame walk of
-// pool_fwd_tile: an output tile of TH x 8 pixels x CVr vectors; each
-// frame's input box ((TH-1)*SH+KH) x (7*SW+KW) pixels is copied once into
-// shared memory (cp.async, two stages; cells outside the tensor hold
-// -inf). Each lane reduces (value, key) pairs, key = dw*16 + dh*4 + dt
-// (the offsets as base-4 digits, so keys order as (dw, dh, dt)): the
-// larger value wins, on equal values the smaller key. That reduction is
-// associative, so W (a strict > scan in dw order, whose keys rise), then
-// H, then T (over the last KT frames, in registers), each taken as the
-// max and then the least key among the pairs equal to it, give the
-// lexicographically first cell in (dw, dh, dt) order that holds the
-// window max: the route of the strict scan of pool_route. The -inf cells
-// of the box take part with their keys, so a window whose max is -inf
-// ends on key 0; it routes nowhere when that cell is padding, and so does
-// a window whose max is NaN (max.NaN carries it; no compare holds).
-template <typename T, int V, RSP_K2_PARAMS, int RH>
-__global__ void __launch_bounds__(kThreads, 2)
-    route_tile(const T* __restrict__ x, uint8_t* __restrict__ route, Geom g,
-               int cvl) {
-  using L = Lanes<T, V>;
-  constexpr int NW = L::NW, TW = kTileCols;
+// -- the tiled walk: K1, and K2's route pass ---------------------------------
+// A tiled block owns an output tile of th = tile_rows(cvl, RH) rows x
+// kTileCols columns x CVr element vectors of one clip, and the output
+// frames [to0, to1) of it. It walks the frames of their windows in order,
+// from to0*ST - pt to (to1-1)*ST - pt + KT - 1: each frame's input box,
+// ((th-1)*SH+KH) x (7*SW+KW) pixels of the tile's vectors, is copied once
+// into shared memory (cp.async, two stages, so that the next frame loads
+// while this one is reduced). Cells outside the tensor hold -inf, and a
+// frame outside [0, T) is -inf and is not loaded. The op reduces each frame
+// from the thread's cells of the box (Op::frame; Op::pad for a frame
+// outside) into a ring of its last KT frames in registers, and writes
+// output frame to once its last frame, to*ST - pt + KT - 1, is in
+// (Op::emit). Each thread owns an output column and RH rows (see tile_rows).
+struct TilePos {
+  int b, cvl;          // the clip; log2 of CVr
+  int wo, ho0, cv;     // the thread's output column, first row, vector
+  bool store;          // its column and vector exist
+};
+
+template <typename T, int V, RSP_K2_PARAMS, int RH, class Op>
+__device__ __forceinline__ void walk_tile(const T* __restrict__ x,
+                                          const Geom& g, int cvl, int b,
+                                          int to0, int to1, uint32_t* smem,
+                                          Op& op) {
+  constexpr int NW = Lanes<T, V>::NW, TW = kTileCols;
   constexpr int BW = (TW - 1) * SW + KW;
   constexpr int CELLS = route_cells(KH, KW, SH, SW, RH);
   constexpr int PER = (CELLS + kThreads - 1) / kThreads;
-  constexpr int ROWS = (RH - 1) * SH + KH;       // box rows of a thread
-  // dynamic shared memory (route_smem bytes): the box, two stages
-  extern __shared__ __align__(16) uint32_t smem[];
   auto box = [&](int stage) { return smem + stage * CELLS * NW; };
 
   const int tid = threadIdx.x, cvr = 1 << cvl;
@@ -993,7 +842,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int cv_n = g.C / V;
   const int ncc = (cv_n + cvr - 1) >> cvl;
   const int wt = blockIdx.x / ncc, cc = blockIdx.x - wt * ncc;
-  const int ht = blockIdx.y, b = blockIdx.z;
+  const int ht = blockIdx.y;
   const int h0 = ht * th * SH - g.ph, w0 = wt * TW * SW - g.pw;
   const int c0 = cc << cvl;
 
@@ -1013,8 +862,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     } else {
 #pragma unroll
       for (int k = 0; k < NW; ++k) {
-        box(0)[i * NW + k] = L::kNegInf;
-        box(1)[i * NW + k] = L::kNegInf;
+        box(0)[i * NW + k] = Lanes<T, V>::kNegInf;
+        box(1)[i * NW + k] = Lanes<T, V>::kNegInf;
       }
     }
   }
@@ -1032,17 +881,83 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   const int v = tid & (cvr - 1), col = (tid >> cvl) % TW;
   const int row0 = (tid >> cvl) / TW * RH;
-  const int wo = wt * TW + col, ho0 = ht * th + row0;
-  const bool store = c0 + v < cv_n && wo < g.Wo;
-  // offset 0 of the window in W lies in the tensor (not in the padding)
-  const bool w_in0 = wo * SW - g.pw >= 0 && wo * SW - g.pw < g.W;
+  TilePos p;
+  p.b = b;
+  p.cvl = cvl;
+  p.wo = wt * TW + col;
+  p.ho0 = ht * th + row0;
+  p.cv = c0 + v;
+  p.store = p.cv < cv_n && p.wo < g.Wo;
+  op.start(p, g);
+  // the thread's first cell: box row row0 * SH, column col * SW
+  const int cell = ((((row0 * SH) * BW + col * SW) << cvl) + v) * NW;
+
+  const int t_first = to0 * ST - g.pt, t_last = (to1 - 1) * ST - g.pt + KT - 1;
+  if (t_first >= 0) load(t_first, 0);
+  copy_commit();
+  for (int t = t_first; t <= t_last; ++t) {
+    const int stage = (t - t_first) & 1;
+    if (t + 1 <= t_last && t + 1 >= 0 && t + 1 < g.T) load(t + 1, stage ^ 1);
+    copy_commit();
+    copy_wait_prev();
+    __syncthreads();
+    op.advance();
+    if (t >= 0 && t < g.T) op.frame(box(stage) + cell);
+    else op.pad();
+    // output frame to ends with frame t
+    const int j = t + g.pt - (KT - 1);
+    if (p.store && j >= to0 * ST && j % ST == 0) op.emit(j / ST, g);
+    __syncthreads();
+  }
+}
+
+// K2 pass 1's op on the walk (the (3,3,3)/1, (1,3,3)/(1,2,2), (3,3,3)/2,
+// (2,2,2)/2 and (1,2,2)/(1,2,2) pools, V = 4 or 8). Each lane reduces
+// (value, key) pairs, key = dw*16 + dh*4 + dt (the offsets as base-4
+// digits, so keys order as (dw, dh, dt)): the larger value wins, on equal
+// values the smaller key. That reduction is associative, so W (a strict >
+// scan in dw order, whose keys rise), then H, then T (over the last KT
+// frames, in registers), each taken as the max and then the least key
+// among the pairs equal to it, give the lexicographically first cell in
+// (dw, dh, dt) order that holds the window max: the route of the strict
+// scan of pool_route. The -inf cells of the box take part with their
+// keys, so a window whose max is -inf ends on key 0; it routes nowhere
+// when that cell is padding, and so does a window whose max is NaN
+// (max.NaN carries it; no compare holds).
+template <typename T, int V, RSP_K2_PARAMS, int RH>
+struct RouteOp {
+  using L = Lanes<T, V>;
+  static constexpr int NW = L::NW, BW = (kTileCols - 1) * SW + KW;
+  static constexpr int ROWS = (RH - 1) * SH + KH;   // box rows of a thread
+  uint8_t* route;
+  TilePos p;
+  bool w_in0;   // offset 0 of the window in W lies in the tensor
+  // ring[d]: the (value, key) pair of the H x W window of frame
+  // t - (KT - 1) + d, for this thread's rows; keys without the dt term
+  uint32_t ring[KT][RH][NW], ringk[KT][RH][NW];
+
+  __device__ __forceinline__ void start(const TilePos& q, const Geom& g) {
+    p = q;
+    w_in0 = p.wo * SW - g.pw >= 0 && p.wo * SW - g.pw < g.W;
+#pragma unroll
+    for (int d = 0; d < KT; ++d)
+#pragma unroll
+      for (int r = 0; r < RH; ++r)
+#pragma unroll
+        for (int k = 0; k < NW; ++k) {
+          ring[d][r][k] = L::kNegInf;
+          ringk[d][r][k] = L::kKey0;
+        }
+  }
 
   // The pair reduction of n (value, key) pairs, keys offset by off * i
   // key units for pair i: the max, and the least key among the pairs equal
   // to it (a pair below the max, or every pair when the max is NaN, offers
   // a key of +inf or NaN, which min passes over).
-  auto reduce = [](uint32_t (*v)[NW], uint32_t (*kv)[NW], int n, int stride,
-                   uint32_t off, uint32_t* m, uint32_t* mk) {
+  __device__ __forceinline__ static void reduce(uint32_t (*v)[NW],
+                                                uint32_t (*kv)[NW], int n,
+                                                int stride, uint32_t off,
+                                                uint32_t* m, uint32_t* mk) {
 #pragma unroll
     for (int k = 0; k < NW; ++k) {
       m[k] = v[0][k];
@@ -1057,33 +972,9 @@ __global__ void __launch_bounds__(kThreads, 2)
           mk[k] = i == 0 ? key : L::min(mk[k], key);
         }
     }
-  };
+  }
 
-  // ring[d]: the (value, key) pair of the H x W window of frame
-  // t - (KT - 1) + d, for this thread's rows; keys without the dt term
-  uint32_t ring[KT][RH][NW], ringk[KT][RH][NW];
-#pragma unroll
-  for (int d = 0; d < KT; ++d)
-#pragma unroll
-    for (int r = 0; r < RH; ++r)
-#pragma unroll
-      for (int k = 0; k < NW; ++k) {
-        ring[d][r][k] = L::kNegInf;
-        ringk[d][r][k] = L::kKey0;
-      }
-
-  // frames are walked from the first window's first frame to the last
-  // window's last frame, the next one loading while one is reduced; a
-  // frame outside [0, T) is -inf and is not loaded
-  const int t_first = -g.pt, t_last = (g.To - 1) * ST - g.pt + KT - 1;
-  if (t_first >= 0) load(t_first, 0);
-  copy_commit();
-  for (int t = t_first; t <= t_last; ++t) {
-    const int stage = (t - t_first) & 1;
-    if (t + 1 <= t_last && t + 1 >= 0 && t + 1 < g.T) load(t + 1, stage ^ 1);
-    copy_commit();
-    copy_wait_prev();
-    __syncthreads();
+  __device__ __forceinline__ void advance() {
 #pragma unroll
     for (int d = 0; d + 1 < KT; ++d)
 #pragma unroll
@@ -1093,67 +984,183 @@ __global__ void __launch_bounds__(kThreads, 2)
           ring[d][r][k] = ring[d + 1][r][k];
           ringk[d][r][k] = ringk[d + 1][r][k];
         }
-    if (t >= 0 && t < g.T) {
-      // W: a strict > scan over KW columns of each of the thread's box rows
-      uint32_t rowv[ROWS][NW], rowk[ROWS][NW];
+  }
+
+  __device__ __forceinline__ void frame(const uint32_t* cell) {
+    // W: a strict > scan over KW columns of each of the thread's box rows
+    uint32_t rowv[ROWS][NW], rowk[ROWS][NW];
 #pragma unroll
-      for (int rr = 0; rr < ROWS; ++rr) {
-        const uint32_t* cell =
-            &box(stage)[((((row0 * SH + rr) * BW + col * SW) << cvl) + v) * NW];
-        ld_words<NW>(cell, rowv[rr]);
+    for (int rr = 0; rr < ROWS; ++rr) {
+      const uint32_t* c0 = cell + ((rr * BW * NW) << p.cvl);
+      ld_words<NW>(c0, rowv[rr]);
 #pragma unroll
-        for (int k = 0; k < NW; ++k) rowk[rr][k] = L::kKey0;
+      for (int k = 0; k < NW; ++k) rowk[rr][k] = L::kKey0;
 #pragma unroll
-        for (int dw = 1; dw < KW; ++dw) {
-          uint32_t c[NW];
-          ld_words<NW>(cell + ((dw * NW) << cvl), c);
-#pragma unroll
-          for (int k = 0; k < NW; ++k) {
-            const uint32_t m = L::gt(c[k], rowv[rr][k]);
-            rowv[rr][k] = L::max_nan(rowv[rr][k], c[k]);
-            rowk[rr][k] = (m & (L::kKey0 + 16 * dw * L::kKeyOne)) |
-                          (~m & rowk[rr][k]);
-          }
-        }
-      }
-      // H: KH rows for each output row, keys + dh*4
-#pragma unroll
-      for (int r = 0; r < RH; ++r)
-        reduce(&rowv[r * SH], &rowk[r * SH], KH, 1, 4 * L::kKeyOne,
-               ring[KT - 1][r], ringk[KT - 1][r]);
-    } else {
-#pragma unroll
-      for (int r = 0; r < RH; ++r)
+      for (int dw = 1; dw < KW; ++dw) {
+        uint32_t c[NW];
+        ld_words<NW>(c0 + ((dw * NW) << p.cvl), c);
 #pragma unroll
         for (int k = 0; k < NW; ++k) {
-          ring[KT - 1][r][k] = L::kNegInf;
-          ringk[KT - 1][r][k] = L::kKey0;
+          const uint32_t m = L::gt(c[k], rowv[rr][k]);
+          rowv[rr][k] = L::max_nan(rowv[rr][k], c[k]);
+          rowk[rr][k] = (m & (L::kKey0 + 16 * dw * L::kKeyOne)) |
+                        (~m & rowk[rr][k]);
         }
-    }
-    // T: output frame to ends with frame t
-    const int j = t + g.pt - (KT - 1);
-    if (store && j >= 0 && j % ST == 0) {
-      const int to = j / ST;
-      const bool t_in0 = j - g.pt >= 0 && j - g.pt < g.T;
-#pragma unroll
-      for (int r = 0; r < RH; ++r) {
-        const int ho = ho0 + r;
-        if (ho >= g.Ho) continue;
-        uint32_t m[NW], mk[NW];
-        reduce(&ring[0][r], &ringk[0][r], KT, RH, L::kKeyOne, m, mk);
-        const int h_first = ho * SH - g.ph;
-        const bool in0 = t_in0 && w_in0 && h_first >= 0 && h_first < g.H;
-        uint32_t drop[NW];
-#pragma unroll
-        for (int k = 0; k < NW; ++k)
-          drop[k] = L::isnan(m[k]) | (in0 ? 0u : L::eq(m[k], L::kNegInf));
-        L::route_bytes(mk, drop,
-                       route + (((b * g.To + to) * g.Ho + ho) * g.Wo + wo) *
-                                   g.C + (c0 + v) * V);
       }
     }
-    __syncthreads();
+    // H: KH rows for each output row, keys + dh*4
+#pragma unroll
+    for (int r = 0; r < RH; ++r)
+      reduce(&rowv[r * SH], &rowk[r * SH], KH, 1, 4 * L::kKeyOne,
+             ring[KT - 1][r], ringk[KT - 1][r]);
   }
+
+  __device__ __forceinline__ void pad() {
+#pragma unroll
+    for (int r = 0; r < RH; ++r)
+#pragma unroll
+      for (int k = 0; k < NW; ++k) {
+        ring[KT - 1][r][k] = L::kNegInf;
+        ringk[KT - 1][r][k] = L::kKey0;
+      }
+  }
+
+  __device__ __forceinline__ void emit(int to, const Geom& g) {
+    const int j = to * ST;
+    const bool t_in0 = j - g.pt >= 0 && j - g.pt < g.T;
+#pragma unroll
+    for (int r = 0; r < RH; ++r) {
+      const int ho = p.ho0 + r;
+      if (ho >= g.Ho) continue;
+      uint32_t m[NW], mk[NW];
+      reduce(&ring[0][r], &ringk[0][r], KT, RH, L::kKeyOne, m, mk);
+      const int h_first = ho * SH - g.ph;
+      const bool in0 = t_in0 && w_in0 && h_first >= 0 && h_first < g.H;
+      uint32_t drop[NW];
+#pragma unroll
+      for (int k = 0; k < NW; ++k)
+        drop[k] = L::isnan(m[k]) | (in0 ? 0u : L::eq(m[k], L::kNegInf));
+      L::route_bytes(mk, drop,
+                     route + (((p.b * g.To + to) * g.Ho + ho) * g.Wo + p.wo) *
+                                 g.C + p.cv * V);
+    }
+  }
+};
+
+// K2 pass 1, tiled: the route of every output of the block's tile, its
+// clip's frames walked whole.
+template <typename T, int V, RSP_K2_PARAMS, int RH>
+__global__ void __launch_bounds__(kThreads, 2)
+    route_tile(const T* __restrict__ x, uint8_t* __restrict__ route, Geom g,
+               int cvl) {
+  // dynamic shared memory (route_smem bytes): the box, two stages
+  extern __shared__ __align__(16) uint32_t smem[];
+  RouteOp<T, V, RSP_K2_ARGS, RH> op;
+  op.route = route;
+  walk_tile<T, V, RSP_K2_ARGS, RH>(x, g, cvl, blockIdx.z, 0, g.To, smem, op);
+}
+
+// K1's op on the walk: the max of each window, W then H from the box in
+// shared memory and T over the ring, in the lanes' own type (max.NaN.bf16x2
+// or max.NaN.f32 on 32-bit words: no widening; the max is exact, so the
+// W -> H -> T order changes no bit), stored as one vector a row.
+template <typename T, int V, RSP_K2_PARAMS, int RH>
+struct MaxOp {
+  using L = Lanes<T, V>;
+  static constexpr int NW = L::NW, BW = (kTileCols - 1) * SW + KW;
+  static constexpr int ROWS = (RH - 1) * SH + KH;   // box rows of a thread
+  T* out;
+  TilePos p;
+  // ring[d]: the H x W max of frame t - (KT - 1) + d, for this thread's rows
+  uint32_t ring[KT][RH][NW];
+
+  __device__ __forceinline__ void start(const TilePos& q, const Geom&) {
+    p = q;
+#pragma unroll
+    for (int d = 0; d < KT; ++d)
+#pragma unroll
+      for (int r = 0; r < RH; ++r)
+#pragma unroll
+        for (int k = 0; k < NW; ++k) ring[d][r][k] = L::kNegInf;
+  }
+
+  __device__ __forceinline__ void advance() {
+#pragma unroll
+    for (int d = 0; d + 1 < KT; ++d)
+#pragma unroll
+      for (int r = 0; r < RH; ++r)
+#pragma unroll
+        for (int k = 0; k < NW; ++k) ring[d][r][k] = ring[d + 1][r][k];
+  }
+
+  __device__ __forceinline__ void frame(const uint32_t* cell) {
+    // W: the max of KW columns in each of the thread's box rows
+    uint32_t rowm[ROWS][NW];
+#pragma unroll
+    for (int rr = 0; rr < ROWS; ++rr) {
+      const uint32_t* c0 = cell + ((rr * BW * NW) << p.cvl);
+      ld_words<NW>(c0, rowm[rr]);
+#pragma unroll
+      for (int dw = 1; dw < KW; ++dw) {
+        uint32_t c[NW];
+        ld_words<NW>(c0 + ((dw * NW) << p.cvl), c);
+#pragma unroll
+        for (int k = 0; k < NW; ++k) rowm[rr][k] = L::max_nan(rowm[rr][k], c[k]);
+      }
+    }
+    // H: the max of KH rows for each output row
+#pragma unroll
+    for (int r = 0; r < RH; ++r)
+#pragma unroll
+      for (int k = 0; k < NW; ++k) {
+        uint32_t m = rowm[r * SH][k];
+#pragma unroll
+        for (int dh = 1; dh < KH; ++dh) m = L::max_nan(m, rowm[r * SH + dh][k]);
+        ring[KT - 1][r][k] = m;
+      }
+  }
+
+  __device__ __forceinline__ void pad() {
+#pragma unroll
+    for (int r = 0; r < RH; ++r)
+#pragma unroll
+      for (int k = 0; k < NW; ++k) ring[KT - 1][r][k] = L::kNegInf;
+  }
+
+  __device__ __forceinline__ void emit(int to, const Geom& g) {
+#pragma unroll
+    for (int r = 0; r < RH; ++r) {
+      const int ho = p.ho0 + r;
+      if (ho >= g.Ho) continue;
+      uint32_t m[NW];
+#pragma unroll
+      for (int k = 0; k < NW; ++k) {
+        m[k] = ring[0][r][k];
+#pragma unroll
+        for (int d = 1; d < KT; ++d) m[k] = L::max_nan(m[k], ring[d][r][k]);
+      }
+      st_words<NW>(reinterpret_cast<uint32_t*>(
+                       out + (((p.b * g.To + to) * g.Ho + ho) * g.Wo + p.wo) *
+                                 g.C + p.cv * V),
+                   m);
+    }
+  }
+};
+
+// K1, tiled: blockIdx.z = b * nch + chunk; chunk c takes the output frames
+// [c * per, min(To, (c + 1) * per)) of clip b (nch = 1, per = To: the
+// whole clip; see fwd_tile_plan).
+template <typename T, int V, RSP_K2_PARAMS, int RH>
+__global__ void __launch_bounds__(kThreads)
+    max_tile(const T* __restrict__ x, T* __restrict__ out, Geom g, int cvl,
+             int nch, int per) {
+  // dynamic shared memory (route_smem bytes): the box, two stages
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int b = blockIdx.z / nch, to0 = (blockIdx.z - b * nch) * per;
+  MaxOp<T, V, RSP_K2_ARGS, RH> op;
+  op.out = out;
+  walk_tile<T, V, RSP_K2_ARGS, RH>(x, g, cvl, b, to0, min(g.To, to0 + per),
+                                   smem, op);
 }
 
 // The route byte dt*9 + dh*3 + dw of each lane of a route word, rewritten
@@ -1488,55 +1495,117 @@ bool geometry_is(const Geom& g, int kt, int kh, int kw, int st, int sh,
          g.sh == sh && g.sw == sw;
 }
 
-// The grid of pool_fwd_tile<..., TH> (V = 4); false when it passes the grid
-// limits (B or the H tiles over 65535), or when the row offsets of a ragged
-// last H tile (up to TH - 1 rows past Ho) would pass 32 bits.
-template <int TH>
-bool fwd_tile_grid(const Geom& g, dim3* grid) {
-  const int64_t x = (int64_t)((g.C / 4 + kFwdCV - 1) / kFwdCV) *
-                    ((g.Wo + kFwdTW - 1) / kFwdTW);
-  const int64_t y = (g.Ho + TH - 1) / TH;
-  const int64_t rows = (int64_t)g.B * g.To * g.Ho + TH;
-  *grid = dim3((unsigned)x, (unsigned)y, (unsigned)g.B);
-  return x < ((int64_t)1 << 31) && y <= 65535 && g.B <= 65535 &&
-         rows * g.Wo * g.C < ((int64_t)1 << 31);
+// A K1 tile grid of fewer blocks than kFwdSplitBlocks (1.5 an SM of the
+// H100's 132) walks its clips in chunks of output frames, one block a
+// chunk, for about kFwdMinBlocks blocks (two an SM) in all.
+constexpr int kFwdSplitBlocks = 198, kFwdMinBlocks = 264;
+
+// The launch of a tiled K1 instance: its rows a thread (0: the generic
+// instance takes the call), thread map, frame chunks and grid.
+struct FwdTile {
+  int rh, cvl, nch, per;
+  dim3 grid;
+};
+
+// The tiled K1's launch at V elements a vector and RH rows a thread: CVr =
+// 1 << cvl, the least power of two >= C / V, at most kMaxCV; grid x = W
+// tiles x channel chunks, y = H tiles, z = B x frame chunks. A small grid
+// cuts each clip's To output frames into chunks of per frames, at least
+// 2 (KT - ST) / ST of them, so that the KT - ST frames of halo a chunk walks
+// before its own are at most half of them (more halo measured slower than
+// the whole walk on the card). False when the grid passes its limits.
+bool fwd_tile_plan(const Geom& g, int V, int rh, FwdTile* ft) {
+  const int cv_n = g.C / V;
+  int cvl = 0;
+  while (cvl < 3 && (1 << cvl) < cv_n) ++cvl;
+  const int th = tile_rows(cvl, rh);
+  const int64_t x = (int64_t)((cv_n + (1 << cvl) - 1) >> cvl) *
+                    ((g.Wo + kTileCols - 1) / kTileCols);
+  const int64_t y = (g.Ho + th - 1) / th;
+  const int64_t blocks = x * y * g.B;
+  int per = g.To;
+  if (blocks < kFwdSplitBlocks) {
+    const int want = (int)((kFwdMinBlocks + blocks - 1) / blocks);
+    const int least = (2 * (g.kt - g.st) + g.st - 1) / g.st;
+    per = (g.To + want - 1) / want;
+    if (per < least) per = least;
+    if (per > g.To) per = g.To;
+  }
+  ft->rh = rh;
+  ft->cvl = cvl;
+  ft->per = per;
+  ft->nch = (g.To + per - 1) / per;
+  const int64_t z = (int64_t)g.B * ft->nch;
+  ft->grid = dim3((unsigned)x, (unsigned)y, (unsigned)z);
+  return x < ((int64_t)1 << 31) && y <= 65535 && z <= 65535;
 }
 
-// Launches the tiled K1 for this geometry; false (launching nothing) when
-// its grid does not fit.
-template <typename T, int KT, int KH, int KW, int ST, int SH, int SW, int TH>
-bool fwd_tile(const void* x, void* out, const Geom& g, cudaStream_t st) {
-  dim3 grid;
-  if (!fwd_tile_grid<TH>(g, &grid)) return false;
-  pool_fwd_tile<T, KT, KH, KW, ST, SH, SW, TH><<<grid, kThreads, 0, st>>>(
-      static_cast<const T*>(x), static_cast<T*>(out), g);
+// Launches the tiled K1 for this geometry (or, given plan, only writes its
+// launch there); false, launching nothing, when its grid does not fit.
+template <typename T, int V, RSP_K2_PARAMS, int RH>
+bool fwd_tile(const void* x, void* out, const Geom& g, cudaStream_t st,
+              FwdTile* plan) {
+  FwdTile ft;
+  if (!fwd_tile_plan(g, V, RH, &ft)) return false;
+  if (plan) {
+    *plan = ft;
+    return true;
+  }
+  constexpr int kSmem = route_smem(KH, KW, SH, SW, RH, Lanes<T, V>::NW);
+  // above 48 KB a kernel must ask for its dynamic shared memory, once
+  static const bool sized =
+      cudaFuncSetAttribute(max_tile<T, V, RSP_K2_ARGS, RH>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kSmem) == cudaSuccess;
+  if (!sized) return false;
+  max_tile<T, V, RSP_K2_ARGS, RH><<<ft.grid, kThreads, kSmem, st>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), g, ft.cvl, ft.nch,
+      ft.per);
   return true;
 }
 
-// Compile-time instances of the tiled K1 for the pool geometries of S3D-G
-// (V = 4, 32-bit plans, a grid that fits), by (kernel, stride), with the
-// tile height TH; every other call takes the generic pool_fwd, and so does
-// every call of a build with RSP_POOL_GENERIC defined (chip_smoke.py times
-// the two).
+// The tiled K1 instances at one vector width, by geometry, with their rows
+// a thread; false when the geometry has none (or its grid does not fit).
+template <typename T, int V>
+bool fwd_tiled(const void* x, void* out, const Geom& g, cudaStream_t st,
+               FwdTile* plan) {
+  if (geometry_is(g, 3, 3, 3, 1, 1, 1))
+    return fwd_tile<T, V, 3, 3, 3, 1, 1, 1, 2>(x, out, g, st, plan);
+  if (geometry_is(g, 1, 3, 3, 1, 2, 2))
+    return fwd_tile<T, V, 1, 3, 3, 1, 2, 2, 1>(x, out, g, st, plan);
+  if (geometry_is(g, 3, 3, 3, 2, 2, 2))
+    return fwd_tile<T, V, 3, 3, 3, 2, 2, 2, 1>(x, out, g, st, plan);
+  if (geometry_is(g, 2, 2, 2, 2, 2, 2))
+    return fwd_tile<T, V, 2, 2, 2, 2, 2, 2, 1>(x, out, g, st, plan);
+  if (geometry_is(g, 1, 2, 2, 1, 2, 2))
+    return fwd_tile<T, V, 1, 2, 2, 1, 2, 2, 1>(x, out, g, st, plan);
+  if (geometry_is(g, 2, 1, 1, 2, 1, 1))
+    return fwd_tile<T, V, 2, 1, 1, 2, 1, 1, 2>(x, out, g, st, plan);
+  return false;
+}
+
+// Every call with a tiled instance (a 32-bit plan, V = 8 in bf16 or 4)
+// takes it; any other call takes the generic pool_fwd (V = 4 or 1), and so
+// does every call of a build with RSP_POOL_GENERIC defined (chip_smoke.py
+// times the two). Given plan, launches nothing and writes there the launch
+// of the tiled instance, or rh = 0 for the generic one.
 template <typename T>
 void fwd_dispatch(const Plan& pl, const void* x, void* out, const Geom& g,
-                  cudaStream_t st) {
+                  cudaStream_t st, FwdTile* plan) {
 #ifndef RSP_POOL_GENERIC
-  if (pl.vec >= 4 && !pl.wide) {
-    if (geometry_is(g, 1, 3, 3, 1, 2, 2) &&
-        fwd_tile<T, 1, 3, 3, 1, 2, 2, 4>(x, out, g, st))
-      return;
-    if (geometry_is(g, 3, 3, 3, 1, 1, 1) &&
-        fwd_tile<T, 3, 3, 3, 1, 1, 1, 8>(x, out, g, st))
-      return;
-    if (geometry_is(g, 3, 3, 3, 2, 2, 2) &&
-        fwd_tile<T, 3, 3, 3, 2, 2, 2, 4>(x, out, g, st))
-      return;
-    if (geometry_is(g, 2, 2, 2, 2, 2, 2) &&
-        fwd_tile<T, 2, 2, 2, 2, 2, 2, 4>(x, out, g, st))
-      return;
+  if (!pl.wide) {
+    bool done = false;
+    if constexpr (sizeof(T) == 2) {
+      if (pl.vec == 8) done = fwd_tiled<T, 8>(x, out, g, st, plan);
+    }
+    if (pl.vec == 4) done = fwd_tiled<T, 4>(x, out, g, st, plan);
+    if (done) return;
   }
 #endif
+  if (plan) {
+    plan->rh = 0;
+    return;
+  }
   if (pl.vec >= 4) {
     if (pl.wide) fwd_t<T, 4, int64_t>(x, out, g, st);
     else fwd_t<T, 4, int32_t>(x, out, g, st);
@@ -1547,9 +1616,9 @@ void fwd_dispatch(const Plan& pl, const void* x, void* out, const Geom& g,
 }
 
 void fwd(const Plan& pl, const void* x, void* out, const Geom& g,
-         cudaStream_t st) {
-  if (pl.dtype == 0) fwd_dispatch<float>(pl, x, out, g, st);
-  else fwd_dispatch<__nv_bfloat16>(pl, x, out, g, st);
+         cudaStream_t st, FwdTile* plan = nullptr) {
+  if (pl.dtype == 0) fwd_dispatch<float>(pl, x, out, g, st, plan);
+  else fwd_dispatch<__nv_bfloat16>(pl, x, out, g, st, plan);
 }
 
 // One K2 call: the route launch over the output, the gather over the input.
@@ -1686,6 +1755,9 @@ Plan make_plan(int dtype, const Geom& g, const void* const* ptrs, int n,
   return pl;
 }
 
+// the forward's widest vector by dtype (f32, bf16): 16 bytes
+constexpr int kFwdMaxVec[2] = {4, 8};
+
 }  // namespace
 
 extern "C" {
@@ -1696,9 +1768,28 @@ int rsp_maxpool3d_fwd(const void* x, void* out, int dtype,
                       const int64_t* shape, const int* kspec, void* stream) {
   Geom g = make_geom(shape, kspec);
   const void* ptrs[2] = {x, out};
-  fwd(make_plan(dtype, g, ptrs, 2, 4), x, out, g,
+  fwd(make_plan(dtype, g, ptrs, 2, kFwdMaxVec[dtype]), x, out, g,
       static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
+}
+
+// The forward's launch for a call on 16-byte aligned tensors, launching
+// nothing: plan = {V, rows a thread of the tiled instance (0: the generic
+// instance, whose V is 4 or 1, and zeros), log2 CVr, frame chunks, output
+// frames a chunk, grid x, y, z}.
+int rsp_maxpool3d_fwd_plan(int dtype, const int64_t* shape, const int* kspec,
+                           int* plan) {
+  Geom g = make_geom(shape, kspec);
+  const void* ptrs[2] = {nullptr, nullptr};
+  const Plan pl = make_plan(dtype, g, ptrs, 2, kFwdMaxVec[dtype]);
+  FwdTile ft = {};
+  fwd(pl, nullptr, nullptr, g, nullptr, &ft);
+  const int vec = ft.rh ? pl.vec : pl.vec >= 4 ? 4 : 1;
+  const int got[8] = {vec, ft.rh, ft.cvl, ft.nch, ft.per,
+                      ft.rh ? (int)ft.grid.x : 0, ft.rh ? (int)ft.grid.y : 0,
+                      ft.rh ? (int)ft.grid.z : 0};
+  for (int i = 0; i < 8; ++i) plan[i] = got[i];
+  return 0;
 }
 
 // dx = d maxpool(x) / dx applied to g: two launches, route then gather.

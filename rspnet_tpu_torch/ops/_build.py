@@ -45,6 +45,8 @@ PROTOTYPES = {
                               ctypes.POINTER(_I), _P],
         "rsp_maxpool3d_bwd": [_P, _P, _P, _P, _I, ctypes.POINTER(_I64),
                               ctypes.POINTER(_I), _P],
+        "rsp_maxpool3d_fwd_plan": [_I, ctypes.POINTER(_I64),
+                                   ctypes.POINTER(_I), ctypes.POINTER(_I)],
     },
     "color_augment": {
         "rsp_color_augment_plan": [_I64, _I64, _I64, _I64, _I, _I,

@@ -17,11 +17,13 @@ Pallas kernel took stride 1 only).
 
 On this card the least time of both directions is set by device-memory
 traffic: read x (and g), write out (or dx); the source says what holds
-each above it. The forward is one launch: at S3D-G's four pool geometries
+each above it. The forward is one launch: at S3D-G's four pool geometries,
+(1,2,2)/(1,2,2) and (2,1,1)/(2,1,1), on 16-byte (bf16: 8-channel) vectors,
 a block copies each frame's input box for its output tile into shared
 memory once and takes the max along W, then H, then T (over the frames it
-has walked); any other call computes each output's whole window in one
-thread. Every max propagates NaN, as ``torch.maximum`` does. The
+has walked; a small grid walks each clip in chunks of frames); any other
+call computes each output's whole window in one thread. Every max
+propagates NaN, as ``torch.maximum`` does. The
 backward is two launches. Composed W -> H
 -> T, the first-match rule sends each output's cotangent to one input, and
 a route pass writes that input's window offset as one byte per output
@@ -265,21 +267,41 @@ def _checked_geometry(shape, k, s, p):
 def max_pool3d_fwd(x: torch.Tensor, k, s, p, *,
                    build: str = "max_pool3d") -> torch.Tensor:
     """K1: NDHWC max pool forward. ``build`` names the kernel library
-    (``_build.VARIANTS``)."""
+    (``_build.VARIANTS``). A geometry seen before is checked and its
+    ctypes arguments built once (``_checked_geometry``): a small pool's
+    time is this call's host time."""
     k, s, p = _triple(k), _triple(s), _triple(p)
-    check_geometry(x.shape, k, s, p)
+    oshape, _, shape_arr, kspec, _ = _checked_geometry(x.shape, k, s, p)
     if not x.is_cuda:
         return max_pool3d_fwd_plain(x, k, s, p)
     _check_cuda(x, "max_pool3d_fwd")
-    out = torch.empty(_out_shape(x.shape, k, s, p), dtype=x.dtype,
-                      device=x.device)
-    lib = _build.library(build)
-    shape_arr, kspec = _geometry_args(x.shape, k, s, p)
-    err = lib.rsp_maxpool3d_fwd(_ptr(x), _ptr(out), _DTYPES[x.dtype],
-                                shape_arr, kspec, _stream(x))
+    out = x.new_empty(oshape)
+    err = _build.library(build).rsp_maxpool3d_fwd(
+        x.data_ptr(), out.data_ptr(), _DTYPES[x.dtype], shape_arr, kspec,
+        _stream(x))
     _build.check(err, "rsp_maxpool3d_fwd")
     _count("max_pool3d_fwd", x.dtype)
     return out
+
+
+# rsp_maxpool3d_fwd_plan's fields, in order
+FWD_PLAN_KEYS = ("vec", "rows", "cvl", "chunks", "frames_per_chunk",
+                 "grid_x", "grid_y", "grid_z")
+
+
+def fwd_plan(shape, k, s, p, dtype: torch.dtype,
+             build: str = "max_pool3d") -> dict:
+    """The launch K1 makes for a call on 16-byte aligned [B, T, H, W, C]
+    tensors of ``dtype`` (needs the kernel library): the vector width,
+    the tiled instance's rows a thread (0: the generic instance takes the
+    call), log2 of its channel vectors a block, its frame chunks and
+    grid."""
+    k, s, p = _triple(k), _triple(s), _triple(p)
+    _, _, shape_arr, kspec, _ = _checked_geometry(shape, k, s, p)
+    plan = (ctypes.c_int * len(FWD_PLAN_KEYS))()
+    _build.check(_build.library(build).rsp_maxpool3d_fwd_plan(
+        _DTYPES[dtype], shape_arr, kspec, plan), "rsp_maxpool3d_fwd_plan")
+    return dict(zip(FWD_PLAN_KEYS, plan))
 
 
 def max_pool3d_bwd(x: torch.Tensor, g: torch.Tensor, k, s, p, *,
