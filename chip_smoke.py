@@ -2273,8 +2273,9 @@ def nccl_world1_path(profile: bool = False) -> dict:
 # ---------------------------------------------------------------------------
 
 def _host_copies() -> dict:
-    from rspnet_tpu_torch.data import device_cache
-    return dict(device_cache.host_copies)
+    from rspnet_tpu_torch.framework import tracing
+    return {"calls": tracing.counter("loader.h2d_calls"),
+            "bytes": tracing.counter("loader.h2d_bytes")}
 
 
 def _copies_since(before: dict) -> dict:

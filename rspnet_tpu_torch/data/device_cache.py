@@ -31,9 +31,10 @@ RSPNET_CACHE_LIMIT_MB (default 6144, as in the JAX package) bounds the
 cached bytes; raise it deliberately (an H100 holds 80 GB).
 
 ``clip_to_device`` moves a batch's clip to the engine's device: a host
-array is copied (counted in ``host_copies``), a tensor already there is
-returned as is, so a cached clip feeds ``crop_resize`` and K3 exactly as
-an uncached one does.
+array is copied (the span ``rsp.loader.h2d``; the counters
+``loader.h2d_calls`` and ``loader.h2d_bytes`` of ``framework/tracing.py``),
+a tensor already there is returned as is, so a cached clip feeds
+``crop_resize`` and K3 exactly as an uncached one does.
 """
 from __future__ import annotations
 
@@ -45,10 +46,9 @@ from typing import List
 import numpy as np
 import torch
 
-logger = logging.getLogger(__name__)
+from ..framework import tracing
 
-# host-to-device clip copies made by clip_to_device (calls, bytes)
-host_copies = {"calls": 0, "bytes": 0}
+logger = logging.getLogger(__name__)
 
 
 def clip_to_device(clip, device: torch.device) -> torch.Tensor:
@@ -58,9 +58,10 @@ def clip_to_device(clip, device: torch.device) -> torch.Tensor:
         if clip.device != torch.device(device):
             raise ValueError(f"clip on {clip.device}, engine on {device}")
         return clip
-    host_copies["calls"] += 1
-    host_copies["bytes"] += clip.nbytes
-    return torch.from_numpy(clip).to(device)
+    tracing.add("loader.h2d_calls")
+    tracing.add("loader.h2d_bytes", clip.nbytes)
+    with tracing.span("rsp.loader.h2d"):
+        return torch.from_numpy(clip).to(device)
 
 
 class DeviceCachedLoader:

@@ -25,6 +25,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..framework import tracing
 from ..ops.augment import _center_max_box, _sample_crop_box
 from . import transforms_temporal as T
 from .video_reader import open_video
@@ -211,7 +212,8 @@ class VideoDataLoader:
 
     # -- per-sample work (worker thread) ------------------------------------
     def _load_sample(self, index: int, rng: np.random.Generator):
-        return _load_one(self.catalog, self.cfg, index, rng)
+        with tracing.span("rsp.loader.decode"):
+            return _load_one(self.catalog, self.cfg, index, rng)
 
     # -- iteration ----------------------------------------------------------
     def _epoch_indices(self) -> np.ndarray:
@@ -423,7 +425,10 @@ def prefetch_iterator(iterable, depth: int = 2):
             it = iter(iterable)
             while not stop.is_set():
                 try:
-                    item = next(it)
+                    # one batch: the cache's gather, or the decode pool
+                    # and the stack
+                    with tracing.span("rsp.loader.produce"):
+                        item = next(it)
                 except StopIteration:
                     item = _END
                 # bounded put so a consumer that exits early (debug-mode

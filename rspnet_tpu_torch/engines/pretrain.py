@@ -50,8 +50,12 @@ device, which the augment takes without a copy. One process only.
 """
 from __future__ import annotations
 
+import itertools
 import logging
 import time
+from contextlib import closing
+from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -59,7 +63,7 @@ import torch
 from ..config import ConfigTree
 from ..data.device_cache import clip_to_device
 from ..data.pipeline import build_loader, prefetch_iterator
-from ..framework import CheckpointManager, MeterGroup, load_state
+from ..framework import CheckpointManager, MeterGroup, load_state, tracing
 from ..framework.checkpoint import load_optimizer_state
 from ..framework.environment import scale_learning_rate
 from ..framework.logging import summary_writer
@@ -187,6 +191,7 @@ class PretrainEngine:
         self.normalize = dataset_normalization(cfg, vid_debug=self.debug)
         # per-step host-clock times (ms), each ended by a device sync
         self.step_times = []
+        self._step_watch = tracing.Stopwatch("rsp.engine.step")
         # the meter averages of the last validate_epoch
         self.validation = {}
 
@@ -196,28 +201,30 @@ class PretrainEngine:
     # box is sampled here with the VID crop_area (0.4, 1.0)
     # (rspnet_tpu/engines/pretrain.py:188-214).
     def _augment_clip(self, clip_u8) -> torch.Tensor:
-        B, _, H, W, _ = clip_u8.shape
-        dev_geom = getattr(self.train_loader.cfg, "device_geometry", False)
-        crop_area = self.train_loader.cfg.crop_area if dev_geom else (1.0, 1.0)
-        if self.aug_plus:
-            p = sample_train_params(
-                self.rng, B, [(H, W)], crop_area=crop_area, h_flip=0.5,
-                gray_p=0.2, jitter=(0.4, 0.4, 0.4, 0.1), jitter_p=0.8,
-                blur_p=0.5)
-        else:
-            p = sample_train_params(
-                self.rng, B, [(H, W)], crop_area=crop_area, h_flip=0.5,
-                gray_p=0.2, jitter=(0.4, 0.4, 0.4, 0.4))
-        if not dev_geom:
-            # crop/resize already happened on the host: identity boxes
-            p.boxes[:] = [0, 0, H, W]
-        mean, std = self.normalize
-        batch = clip_to_device(clip_u8, self.device)
-        return augment_batch(
-            batch, p, size=(self.size, self.size), mean=mean, std=std,
-            gray_before_jitter=not self.aug_plus, use_blur=self.aug_plus,
-            identity_geometry=not dev_geom and (H, W) == (self.size,
-                                                          self.size))
+        with tracing.phase("rsp.augment"):
+            B, _, H, W, _ = clip_u8.shape
+            lcfg = self.train_loader.cfg
+            dev_geom = getattr(lcfg, "device_geometry", False)
+            crop_area = lcfg.crop_area if dev_geom else (1.0, 1.0)
+            if self.aug_plus:
+                p = sample_train_params(
+                    self.rng, B, [(H, W)], crop_area=crop_area, h_flip=0.5,
+                    gray_p=0.2, jitter=(0.4, 0.4, 0.4, 0.1), jitter_p=0.8,
+                    blur_p=0.5)
+            else:
+                p = sample_train_params(
+                    self.rng, B, [(H, W)], crop_area=crop_area, h_flip=0.5,
+                    gray_p=0.2, jitter=(0.4, 0.4, 0.4, 0.4))
+            if not dev_geom:
+                # crop/resize already happened on the host: identity boxes
+                p.boxes[:] = [0, 0, H, W]
+            mean, std = self.normalize
+            batch = clip_to_device(clip_u8, self.device)
+            return augment_batch(
+                batch, p, size=(self.size, self.size), mean=mean, std=std,
+                gray_before_jitter=not self.aug_plus, use_blur=self.aug_plus,
+                identity_geometry=(not dev_geom
+                                   and (H, W) == (self.size, self.size)))
 
     def _step_config(self):
         """The step's MoCo config: with more than one speed, the branch of
@@ -234,46 +241,67 @@ class PretrainEngine:
             torch.cuda.synchronize(self.device)
 
     # -- epochs ---------------------------------------------------------------
-    def train_epoch(self, epoch: int) -> None:
-        self.meters.reset()
-        self.train_loader.set_epoch(epoch)
-        n_batches = len(self.train_loader)
-        t_epoch = time.perf_counter()
-        samples = 0
-        rows = []
-        for i, batch in enumerate(prefetch_iterator(iter(self.train_loader))):
-            t0 = time.perf_counter()
-            clip_q = self._augment_clip(batch["clips"][0])
-            clip_k = self._augment_clip(batch["clips"][1])
-            metrics = train_step(self.state, clip_q, clip_k,
-                                 self._step_config(),
-                                 generator=self.generator,
-                                 layout=self.layout)
-            rows.append(torch.stack([metrics[k] for k in METRIC_KEYS]))
-            self._sync()
-            self.step_times.append((time.perf_counter() - t0) * 1000.0)
-            samples += batch["labels"].shape[0] * self.world_size
-            if i % self.log_interval == 0:
-                vals = rows[-1].tolist()
-                logger.info(
-                    "Epoch %d [%d/%d] %s lr=%.5f step=%.1fms", epoch, i,
-                    n_batches, "\t".join(f"{k}={v:.4f}" for k, v in
-                                         zip(METRIC_KEYS, vals)),
-                    self.scheduler.lr, self.step_times[-1])
-            if self.debug and i >= 2:
-                break
-        for row in torch.stack(rows).cpu().tolist():
-            self.meters.update(dict(zip(METRIC_KEYS, row)))
-        dt = time.perf_counter() - t_epoch
-        logger.info("Epoch %d done in %.1fs (%.1f clips/s)", epoch, dt,
-                    samples / max(dt, 1e-9))
-        if self.writer is not None:
-            self.writer.add_scalar("train/clips_per_sec",
-                                   samples / max(dt, 1e-9), epoch)
-            for k in METRIC_KEYS:
-                self.writer.add_scalar(f"train/{k}", self.meters[k].avg,
-                                       epoch)
-            self.writer.add_scalar("train/lr", self.scheduler.lr, epoch)
+    def train_epoch(self, epoch: int, max_steps: Optional[int] = None) -> None:
+        """One epoch over the train loader, or its first ``max_steps``
+        steps (3 with ``--debug``). Spans (``framework/tracing.py``, while
+        a profiler runs): ``rsp.engine.epoch`` the call; ``rsp.engine.iter``
+        a loop turn, data wait in it; ``rsp.loader.next`` the wait;
+        ``rsp.engine.step`` the interval ``step_times`` records, with
+        ``rsp.engine.sync`` in it; ``rsp.engine.drain`` the epoch's end."""
+        if self.debug:
+            max_steps = 3 if max_steps is None else min(max_steps, 3)
+        with tracing.span("rsp.engine.epoch"):
+            self.meters.reset()
+            self.train_loader.set_epoch(epoch)
+            n_batches = len(self.train_loader)
+            t_epoch = time.perf_counter()
+            samples = 0
+            rows = []
+            turns = (itertools.count() if max_steps is None
+                     else range(max_steps))
+            with closing(prefetch_iterator(iter(self.train_loader))) as it:
+                for i in turns:
+                    tracing.begin_step(self.state.step, self.device)
+                    with tracing.span("rsp.engine.iter"):
+                        with tracing.span("rsp.loader.next"):
+                            batch = next(it, None)
+                        if batch is None:
+                            break
+                        with self._step_watch:
+                            clip_q = self._augment_clip(batch["clips"][0])
+                            clip_k = self._augment_clip(batch["clips"][1])
+                            metrics = train_step(self.state, clip_q, clip_k,
+                                                 self._step_config(),
+                                                 generator=self.generator,
+                                                 layout=self.layout)
+                            rows.append(torch.stack([metrics[k]
+                                                     for k in METRIC_KEYS]))
+                            with tracing.span("rsp.engine.sync"):
+                                self._sync()
+                        self.step_times.append(self._step_watch.ms)
+                        samples += batch["labels"].shape[0] * self.world_size
+                        if i % self.log_interval == 0:
+                            vals = rows[-1].tolist()
+                            logger.info(
+                                "Epoch %d [%d/%d] %s lr=%.5f step=%.1fms",
+                                epoch, i, n_batches,
+                                "\t".join(f"{k}={v:.4f}" for k, v in
+                                          zip(METRIC_KEYS, vals)),
+                                self.scheduler.lr, self.step_times[-1])
+            with tracing.span("rsp.engine.drain"):
+                for row in torch.stack(rows).cpu().tolist():
+                    self.meters.update(dict(zip(METRIC_KEYS, row)))
+                dt = time.perf_counter() - t_epoch
+                logger.info("Epoch %d done in %.1fs (%.1f clips/s)", epoch,
+                            dt, samples / max(dt, 1e-9))
+                if self.writer is not None:
+                    self.writer.add_scalar("train/clips_per_sec",
+                                           samples / max(dt, 1e-9), epoch)
+                    for k in METRIC_KEYS:
+                        self.writer.add_scalar(f"train/{k}",
+                                               self.meters[k].avg, epoch)
+                    self.writer.add_scalar("train/lr", self.scheduler.lr,
+                                           epoch)
 
     def validate_epoch(self) -> dict:
         """One no-grad statistics epoch over the train loader at the current
@@ -284,6 +312,7 @@ class PretrainEngine:
         self.train_loader.set_epoch(self.current_epoch)
         rows, sizes = [], []
         for i, batch in enumerate(prefetch_iterator(iter(self.train_loader))):
+            tracing.begin_step(self.state.step, self.device)
             clip_q = self._augment_clip(batch["clips"][0])
             clip_k = self._augment_clip(batch["clips"][1])
             metrics = eval_step(self.state, clip_q, clip_k,
@@ -299,6 +328,37 @@ class PretrainEngine:
         logger.info("Validate statistics: %s", meters)
         self.validation = {k: meters[k].avg for k in METRIC_KEYS}
         return self.validation
+
+    def profile_steps(self, n_steps: int) -> Path:
+        """One warm step, then ``n_steps`` steps of the current epoch
+        under ``torch.profiler``: the Chrome trace, with the ``rsp.`` spans
+        in it, into ``run_dir/profile/trace.json``, and one log line per
+        span name and the counters the steps moved (``--profile-steps``;
+        the port of the JAX engine's ``profile_steps``)."""
+        from torch.profiler import ProfilerActivity, profile
+        out = Path(self.args.run_dir) / "profile"
+        out.mkdir(parents=True, exist_ok=True)
+        self.train_epoch(self.current_epoch, max_steps=1)
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        before = tracing.counters()
+        with profile(activities=activities) as prof:
+            self.train_epoch(self.current_epoch, max_steps=n_steps)
+        after = tracing.counters()
+        moved = {k: after.get(k, 0) - before.get(k, 0) for k in
+                 {"loader.h2d_calls", "loader.h2d_bytes", *after}}
+        for name, count, host_ms, device_ms in tracing.summarize(
+                tracing.spans()):
+            logger.info("%s: %d spans, host %.3f ms%s in all", name, count,
+                        host_ms, "" if device_ms is None
+                        else f", device {device_ms:.3f} ms")
+        logger.info("counters: %s", " ".join(
+            f"{k}={v}" for k, v in sorted(moved.items())))
+        path = out / "trace.json"
+        prof.export_chrome_trace(str(path))
+        logger.info("Profiler trace written to %s", path)
+        return path
 
     def run(self) -> None:
         num_epochs = 1 if self.debug else self.num_epochs

@@ -185,3 +185,21 @@ class Args(BaseArgs):
                 logger.info('Continue using previous checkpoint: "%s"', ckpt)
             else:
                 logger.warning("No previous checkpoint found")
+
+
+class PretrainArgs(Args):
+    """The pretrain CLI's arguments: ``Args`` and ``--profile-steps``."""
+
+    def __init__(self):
+        super().__init__()
+        self.profile_steps: int = 0
+
+    @classmethod
+    def add_arguments(cls, parser: argparse.ArgumentParser) -> None:
+        super().add_arguments(parser)
+        parser.add_argument("--profile-steps", type=int, default=0,
+                            metavar="N",
+                            help="one warm step, then N steps under "
+                                 "torch.profiler: the Chrome trace into "
+                                 "the run dir's profile/, one log line "
+                                 "per span; no training, no checkpoint")

@@ -21,8 +21,8 @@ from .reproduction import initialize_seed
 logger = logging.getLogger(__name__)
 
 
-def bootstrap(argv=None):
-    """-> (args, cfg)"""
+def bootstrap(argv=None, args_class=None):
+    """-> (args, cfg); ``args_class`` parses ``argv`` (default ``Args``)."""
     from ..config import get_config, save_config
     from ..parallel import barrier, get_rank, init_distributed, world_size
     from .arguments import Args
@@ -30,7 +30,7 @@ def bootstrap(argv=None):
     from .environment import ulimit_n_max
     from .logging import set_logging_basic_config
 
-    args = Args.from_args(argv)
+    args = (args_class or Args).from_args(argv)
     init_distributed(args.device)
     rank = get_rank()
     args.resolve_continue()        # --continue can supply the config

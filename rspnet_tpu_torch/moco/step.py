@@ -7,6 +7,11 @@ One step, in the JAX package's order (step_core.py:313-378):
   no-grad key pass -> query forward + A-VID InfoNCE + margin ranking ->
   backward -> SGD -> ring enqueue of the negative keys -> metrics
 
+Each stage but the metrics is a phase of ``framework/tracing.py`` (while a
+profiler runs): ``rsp.step.ema``, ``.gather``, ``.key_pass``,
+``.q_forward`` (query pass and objective), ``.backward``, ``.optimizer``
+(gradient combine and SGD) and ``.enqueue``.
+
 The fused key pass computes the key encoder's BN statistics over the
 concatenated 2B batch (real and negative keys together), as the JAX
 package does; the reference ran two B-batch passes. Randomness: the
@@ -51,6 +56,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..framework import tracing
 from ..framework.metrics import accuracy
 from ..parallel import all_gather_rows, all_reduce_mean, combine_grads
 from .wrapper import MultiTaskWrapper
@@ -341,33 +347,41 @@ def train_step(state: MoCoState, im_q: torch.Tensor, im_k: torch.Tensor,
     model_k.train()
 
     # 1. momentum update BEFORE key encoding (reference :507-509)
-    momentum_update(model_q, model_k, cfg.m)
+    with tracing.phase("rsp.step.ema"):
+        momentum_update(model_q, model_k, cfg.m)
 
     # 2. dual-speed sampling
-    q_real, k_real, k_neg = diff_speed_gather(
-        im_q, im_k, cfg, perm=perm, speed_index=speed_index,
-        generator=generator)
+    with tracing.phase("rsp.step.gather"):
+        q_real, k_real, k_neg = diff_speed_gather(
+            im_q, im_k, cfg, perm=perm, speed_index=speed_index,
+            generator=generator)
 
     # 3. fused 2B key pass, no grad
-    k_a, k_m, k_neg_a, k_neg_m = key_pass(model_k, k_real, k_neg)
+    with tracing.phase("rsp.step.key_pass"):
+        k_a, k_m, k_neg_a, k_neg_m = key_pass(model_k, k_real, k_neg)
 
     # 4. query pass + loss
-    q_a, q_m = model_q(q_real)
-    loss, metrics = moco_objective(q_a, q_m, k_a, k_m, k_neg_a, k_neg_m,
-                                   state.queue, cfg, layout)
+    with tracing.phase("rsp.step.q_forward"):
+        q_a, q_m = model_q(q_real)
+        loss, metrics = moco_objective(q_a, q_m, k_a, k_m, k_neg_a, k_neg_m,
+                                       state.queue, cfg, layout)
 
-    # 5. backward, the mesh-wide gradient combine, SGD
-    state.optimizer.zero_grad(set_to_none=True)
-    if layout.loss_scale != 1.0:
-        loss = loss * layout.loss_scale
-    loss.backward()
-    layout.grad_combine(model_q.parameters())
-    state.optimizer.step()
+    # 5. backward (zero_grad to None launches nothing), the mesh-wide
+    #    gradient combine, SGD
+    with tracing.phase("rsp.step.backward"):
+        state.optimizer.zero_grad(set_to_none=True)
+        if layout.loss_scale != 1.0:
+            loss = loss * layout.loss_scale
+        loss.backward()
+    with tracing.phase("rsp.step.optimizer"):
+        layout.grad_combine(model_q.parameters())
+        state.optimizer.step()
 
     # 6. enqueue the global batch of negative keys (reference enqueues
     #    k_neg_A, :544)
-    state.queue_ptr = layout.queue_update(state.queue, state.queue_ptr,
-                                          layout.gather_keys(k_neg_a))
+    with tracing.phase("rsp.step.enqueue"):
+        state.queue_ptr = layout.queue_update(state.queue, state.queue_ptr,
+                                              layout.gather_keys(k_neg_a))
     state.step += 1
     return layout.metrics_combine(metrics)
 

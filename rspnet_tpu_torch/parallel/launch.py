@@ -76,14 +76,15 @@ def spawn(module: str, argv: List[str], n: int) -> int:
             p.wait()
 
 
-def launch(module: str, argv: Optional[List[str]]) -> bool:
+def launch(module: str, argv: Optional[List[str]], args_class=None) -> bool:
     """In a CLI's ``main``: with ``--ws N > 1`` outside a group, run the N
     ranks and return True (raising ``SystemExit`` with a failing rank's
-    code); otherwise return False and let this process run."""
+    code); otherwise return False and let this process run.
+    ``args_class`` parses ``argv`` (default ``Args``)."""
     from ..framework.arguments import Args
 
     argv = list(sys.argv[1:] if argv is None else argv)
-    args = Args.from_args(argv)
+    args = (args_class or Args).from_args(argv)
     n = ranks_to_start(args.world_size, args.device)
     if n <= 1:
         return False

@@ -15,7 +15,8 @@ device_cache.py), on the CPU.
   know raises ``ValueError``; under two gloo ranks the cache refuses, as
   the JAX cache refuses more than one process.
 - ``clip_to_device`` hands a cached tensor through without a copy and
-  counts the copies of host arrays.
+  counts the copies of host arrays (the tracer's ``loader.h2d_calls`` and
+  ``loader.h2d_bytes``).
 - Each engine runs from the cache on the CPU: pretrain and CAM
   visualization with ``cache_device: true`` (no clip copied to the
   device), finetune with ``"train"``, retrieval with ``true``, whose test
@@ -28,9 +29,9 @@ import numpy as np
 import pytest
 import torch
 
-from rspnet_tpu_torch.data import device_cache
 from rspnet_tpu_torch.data.device_cache import (DeviceCachedLoader,
                                                 clip_to_device)
+from rspnet_tpu_torch.framework import tracing
 from tests.conftest import REPO_ROOT
 from tests.torch_checkpoints import drop_checkpoints  # noqa: F401
 from tests.torch_ddp_ranks import run_ranks
@@ -194,16 +195,21 @@ def test_two_ranks_refuse_the_cache():
         assert "multi-process" in (out["error"] or ""), out
 
 
+def _host_copies():
+    return {"calls": tracing.counter("loader.h2d_calls"),
+            "bytes": tracing.counter("loader.h2d_bytes")}
+
+
 def test_clip_to_device_copies_host_arrays_only():
-    before = dict(device_cache.host_copies)
+    before = _host_copies()
     t = torch.zeros(2, 3, dtype=torch.uint8)
     assert clip_to_device(t, torch.device("cpu")) is t
-    assert device_cache.host_copies == before
+    assert _host_copies() == before
     a = np.ones((2, 3), np.uint8)
     got = clip_to_device(a, torch.device("cpu"))
     assert torch.equal(got, torch.ones(2, 3, dtype=torch.uint8))
-    assert device_cache.host_copies == {"calls": before["calls"] + 1,
-                                        "bytes": before["bytes"] + 6}
+    assert _host_copies() == {"calls": before["calls"] + 1,
+                              "bytes": before["bytes"] + 6}
 
 
 # ---------------------------------------------------------------------------
@@ -228,9 +234,9 @@ def pretrained(tmp_path_factory):
     os.chdir(REPO_ROOT)
     try:
         exp = tmp_path_factory.mktemp("cached_pretrain")
-        copies = dict(device_cache.host_copies)
+        copies = _host_copies()
         engine = pretrain.main(_pretrain_argv(exp, ", cache_device: true"))
-        copies = device_cache.host_copies["calls"] - copies["calls"]
+        copies = _host_copies()["calls"] - copies["calls"]
     finally:
         os.chdir(cwd)
     return engine, copies, exp / "checkpoint.pth.tar"
@@ -249,11 +255,11 @@ def test_visualization_runs_from_the_cache(pretrained, tmp_path,
                                            monkeypatch):
     from rspnet_tpu_torch import visualization
     monkeypatch.chdir(REPO_ROOT)
-    before = device_cache.host_copies["calls"]
+    before = _host_copies()["calls"]
     engine = visualization.main(_pretrain_argv(
         tmp_path, ", cache_device: true") + ["--mc", str(pretrained[2])])
     assert isinstance(engine.loader, DeviceCachedLoader)
-    assert device_cache.host_copies["calls"] == before
+    assert _host_copies()["calls"] == before
     assert len(list(tmp_path.rglob("cam/*.png"))) == 4 * 2
 
 
