@@ -173,6 +173,18 @@ Phases, each printing its own lines:
      that the ffmpeg program writes decodes bit-equal across two calls,
      and within 2 levels of OpenCV where OpenCV exists. The cached runs'
      launches join the JSON line.
+ 15. the RGB stems, after phase 3: each convolution with fewer than 8
+     input channels of each backbone of ``STEM_ARCHS`` (S3D-G, ResNet-3D,
+     C3D, R(2+1)D, TSM, SlowFast's two, MFNet, r3d_18), read from the built
+     model, at its pretrain clip, bf16 from an f32 clip and weight as the backbones cast them:
+     the plain ``F.conv3d`` beside ``models/common.py:conv3d``, which runs
+     the stride-2 stems as ``SpaceToDepthConv3d`` (2x2 pixel blocks folded
+     into 16 channels), the forward timed at the fused key pass's batch 128
+     and the forward and weight gradient at the q batch 64, the kernels of
+     each named, output and weight gradient held to the f32 convolution of
+     the same bf16 values; no packed stem may be slower than its plain
+     call. Phases 4, 7, 10 and 11 count 2 packed stem forwards a step (4
+     on SlowFast, 0 on C3D), phase 9 (f32) none.
 Then one JSON line with the kernels, the card line again, and the result
 line ``{"ok": true, "device": {...}}`` last. Any failure exits non-zero
 before the result line. Imports nothing of JAX or of rspnet_tpu.
@@ -396,6 +408,22 @@ P13_TOL = {"update_rel_l2": 0.1, "bn_stats_rel": 1e-3,
 # resolution, two uint8 clips of 32 frames of 128 x 171 each
 P14_SAMPLES = 256
 P14_BYTES = P14_SAMPLES * 2 * 32 * 128 * 171 * 3
+# phase 15: arch -> (the model keys of its pretrain config, the clip
+# [T, H, W] it sees in pretraining at 112² (S3D-G at 224²)); its stems are
+# the built backbone's convolutions with fewer than 8 input channels
+# (SlowFast's slow pathway takes T // alpha of the frames), timed at the q
+# batch (forward and weight gradient) and the fused key pass's (forward)
+STEM_ARCHS = {
+    "s3dg": ({}, (16, 224, 224)),
+    "resnet18": ({}, (16, 112, 112)),
+    "c3d": ({}, (16, 112, 112)),
+    "r2plus1d-vcop": ({}, (16, 112, 112)),
+    "tsm": ({"base_model": "resnet18", "num_segments": 8}, (8, 112, 112)),
+    "slowfast": ({}, (16, 112, 112)),
+    "mfnet": ({}, (16, 112, 112)),
+    "torchvision-resnet18": ({}, (16, 112, 112)),
+}
+STEM_BATCH = 64
 
 
 class SmokeError(RuntimeError):
@@ -1084,6 +1112,141 @@ def time_blur(dev, clips: int, frames: int, size: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 15: the RGB stems, plain against packed
+# ---------------------------------------------------------------------------
+
+def _kernel_names(fn) -> list:
+    """(device ms, name) of the kernels one call of ``fn`` launches, the
+    longest first."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = []
+    for e in prof.key_averages():
+        us = float(getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0.0)))
+        if us > 0:
+            out.append((us / 1e3, e.key))
+    return sorted(out, reverse=True)
+
+
+def _max_err(got, ref) -> float:
+    return float((got.detach().float() - ref).abs().max())
+
+
+def stem_sites():
+    """(name, conv, clip) of each RGB stem of the backbones of
+    ``STEM_ARCHS``, the conv on the CPU with the model's initial weight."""
+    from torch import nn
+    from rspnet_tpu_torch.models import get_model_class
+    for arch, (keys, (t, h, w)) in STEM_ARCHS.items():
+        model = get_model_class(arch, **keys)()
+        for name, conv in model.named_modules():
+            if isinstance(conv, nn.Conv3d) and conv.in_channels < 8:
+                frames = (t // model.spec.alpha if name.startswith("slow.")
+                          else t)
+                yield f"{arch}.{name}", conv, (frames, h, w)
+
+
+def time_stems(dev) -> dict:
+    """Phase 15: each stem of ``stem_sites()`` as the backbones run it in
+    bf16, from an f32 NDHWC clip and an f32 weight: the plain
+    ``F.conv3d`` against ``models/common.py:conv3d``, which runs the stems
+    ``packs_stem`` picks as ``SpaceToDepthConv3d``. Times the forward at
+    the fused key pass's batch (2 x ``STEM_BATCH``, no gradient) and the
+    forward and the weight gradient at the q batch; names the kernels of
+    each; holds the output and the weight gradient to the f32 convolution
+    of the same bf16 values (TF32 off), within an ulp of their largest
+    element or the plain call's own error. A ``packed<=plain`` flag a
+    packed site compares the three times' sum; no packed stem may be
+    slower."""
+    import torch
+    import torch.nn.functional as F
+    from rspnet_tpu_torch.models.common import conv3d, packs_stem
+
+    bf = torch.bfloat16
+    out = {}
+    for name, conv, clip in stem_sites():
+        conv = conv.to(dev)
+        w, stride, pad = conv.weight, conv.stride, conv.padding
+        gen = torch.Generator(device=dev).manual_seed(0)
+        x_key = torch.rand((2 * STEM_BATCH, *clip, 3), device=dev,
+                           generator=gen).permute(0, 4, 1, 2, 3)
+        x = x_key[:STEM_BATCH]
+        packed = packs_stem(conv, x, bf)
+        calls = {"plain": lambda xx: F.conv3d(xx.to(bf), w.to(bf), None,
+                                              stride, pad)}
+        if packed:
+            calls["packed"] = lambda xx: conv3d(conv, xx, bf)
+        # the yardstick: the f32 convolution of the bf16 values
+        xb = x.to(bf).float()
+        wb = w.detach().to(bf).float().requires_grad_()
+        y32 = F.conv3d(xb, wb, None, stride, pad)
+        g = torch.randn(y32.shape, device=dev, generator=gen).to(bf)
+        gw32, = torch.autograd.grad(y32, wb, g.float())
+        y32 = y32.detach()
+        y_scale, gw_scale = float(y32.abs().max()), float(gw32.abs().max())
+        del xb, wb
+        rows = {}
+        for label, call in calls.items():
+            y = call(x)
+            gw, = torch.autograd.grad(y, w, g, retain_graph=True)
+
+            def key_fwd():
+                with torch.no_grad():
+                    call(x_key)
+
+            def wgrad():
+                torch.autograd.grad(y, w, g, retain_graph=True)
+
+            rows[label] = {
+                "key_fwd_ms": time_calls_ms(key_fwd),
+                "q_fwd_ms": time_calls_ms(lambda: call(x)),
+                "wgrad_ms": time_calls_ms(wgrad),
+                "err_y": _max_err(y, y32), "err_w": _max_err(gw, gw32),
+                "fwd_kernels": _kernel_names(key_fwd),
+                "wgrad_kernels": _kernel_names(wgrad)}
+            rows[label]["sum_ms"] = sum(rows[label][f"{p}_ms"] for p in (
+                "key_fwd", "q_fwd", "wgrad"))
+            del y, gw
+        plain = rows["plain"]
+        for lab, r in rows.items():
+            flag = (f" packed<={r['sum_ms'] <= plain['sum_ms']}"
+                    if lab == "packed" else "" if packed
+                    else " (not packed: the plain call is conv3d's)")
+            print(f"stem {name} {lab}: key fwd [{2 * STEM_BATCH}] "
+                  f"{r['key_fwd_ms']:.3f} ms, q fwd [{STEM_BATCH}] "
+                  f"{r['q_fwd_ms']:.3f}, wgrad {r['wgrad_ms']:.3f}, "
+                  f"sum {r['sum_ms']:.3f}; max err out {r['err_y']:.3g} "
+                  f"(scale {y_scale:.3g}), wgrad {r['err_w']:.3g} (scale "
+                  f"{gw_scale:.3g}){flag}", flush=True)
+            for what in ("fwd_kernels", "wgrad_kernels"):
+                print(f"stem {name} {lab} {what[:-8]}: " + "; ".join(
+                    f"{ms:.3f} ms {key[:100]}" for ms, key in r[what][:4]),
+                    flush=True)
+            # an ulp of the largest element: 2^-8 of it in bf16
+            require(r["err_y"] <= max(plain["err_y"], y_scale / 256),
+                    f"stem {name} {lab}: output off by {r['err_y']}")
+            require(r["err_w"] <= max(plain["err_w"], gw_scale / 256),
+                    f"stem {name} {lab}: weight gradient off by "
+                    f"{r['err_w']}")
+        out[name] = {lab: {key: r[key] for key in (
+            "key_fwd_ms", "q_fwd_ms", "wgrad_ms", "sum_ms")}
+            for lab, r in rows.items()}
+        del x_key, x, conv, w, y32, g, gw32
+        torch.cuda.empty_cache()
+    slower = [n for n, r in out.items() if "packed" in r
+              and r["packed"]["sum_ms"] > r["plain"]["sum_ms"]]
+    print(f"stems over {len(out)} sites: packed at "
+          f"{sum('packed' in r for r in out.values())}, slower than the "
+          f"plain call at {len(slower)} {slower}", flush=True)
+    require(not slower, f"the packed stem is slower at {slower}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 
@@ -1107,6 +1270,12 @@ def _read_counters():
     return {**mp_l, **ca_l}, dict(mp_d), {**mp_p, **ca_p}
 
 
+def _stem_pads() -> int:
+    """Forwards of the packed stem convolution so far."""
+    from rspnet_tpu_torch.framework import tracing
+    return tracing.counter("backbone.stem_pad_calls")
+
+
 def _main_argv(exp: str, *more: str,
                config: str = "config/pretrain/s3dg.jsonnet", fields=""):
     ext = ('{dataset+: {name: "synthetic"}, device_geometry: true%s}'
@@ -1126,6 +1295,7 @@ def main_path(batch: int, exp: str, profile: bool = False) -> dict:
     argv = _main_argv(exp, "--ws", "1")
     torch.cuda.reset_peak_memory_stats()
     _reset_counters()
+    pads = _stem_pads()
     t0 = time.perf_counter()
     if profile:
         from torch.profiler import ProfilerActivity
@@ -1163,6 +1333,10 @@ def main_path(batch: int, exp: str, profile: bool = False) -> dict:
     require(os.path.exists(ckpt), "checkpoint.pth.tar was not written")
     require(not dist.is_initialized() and engine.mesh.group is None,
             "main path: --ws 1 made a process group")
+    pads = _stem_pads() - pads
+    print(f"main path: {pads} packed stem forwards", flush=True)
+    require(pads == 2 * len(steps), f"main path: {pads} packed stem "
+            f"forwards, not 2 a step (key pass and q pass)")
     if profile:
         report_profile(prof, wall)
     return {"launches": counts, "steps_ms": steps, "peak_gib": peak,
@@ -1352,6 +1526,7 @@ def zoo_pretrain_path(arch: str, exp: str, profile: bool = False,
     argv = _main_argv(exp, config=config, fields=fields)
     torch.cuda.reset_peak_memory_stats()
     _reset_counters()
+    pads = _stem_pads()
     t0 = time.perf_counter()
     if profile:
         from torch.profiler import ProfilerActivity
@@ -1402,6 +1577,11 @@ def zoo_pretrain_path(arch: str, exp: str, profile: bool = False,
     require(not any(plain.values()),
             f"plain versions ran on CUDA tensors: {plain}")
     require(os.path.exists(ckpt), f"{arch}: no checkpoint.pth.tar")
+    # SlowFast has a stem on each pathway; C3D's stride-1 stem is not packed
+    pads = _stem_pads() - pads
+    want = 2 * len(steps) * {"slowfast": 2, "c3d": 0}.get(arch, 1)
+    require(pads == want, f"{arch} pretrain: {pads} packed stem forwards, "
+            f"not {want}")
     if profile:
         report_profile(prof, wall)
     return {"launches": counts, "steps_ms": steps, "peak_gib": peak,
@@ -1663,6 +1843,7 @@ def visualization_path(exp: str, pretrained: str) -> dict:
     runs = []
     torch.cuda.reset_peak_memory_stats()
     _reset_counters()
+    pads = _stem_pads()
     t0 = time.perf_counter()
     for name in ("a", "b"):
         engine = visualization.main(
@@ -1693,6 +1874,8 @@ def visualization_path(exp: str, pretrained: str) -> dict:
             f"visualization launched K2 or K3: {counts}")
     require(by_dtype["max_pool3d_fwd.bfloat16"] == 0,
             f"visualization launched K1 off f32: {by_dtype}")
+    require(_stem_pads() == pads,
+            "visualization (f32) ran the packed stem")
     require(not any(plain.values()),
             f"plain versions ran on CUDA tensors: {plain}")
     return {"launches": counts, "wall_s": wall, "peak_gib": peak}
@@ -2740,6 +2923,7 @@ def main(argv=None) -> int:
           f"F.max_pool3d at {flags['slower_than_lib']}; a tiled instance "
           f"at {flags['tiled_sites']}, slower than 1.05 times the generic "
           f"instance at {flags['tile_over_1.05_generic']}", flush=True)
+    time_stems(dev)                                               # phase 15
 
     with tempfile.TemporaryDirectory() as exp:
         trained = main_path(MAIN_BATCH, os.path.join(exp, "train"),  # 4

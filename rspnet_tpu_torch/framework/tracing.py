@@ -19,7 +19,11 @@
 - ``Stopwatch(name)``: a span that always times its body (``ms``), on or
   off, so that a caller's own timing and its span come from the same two
   clock reads (the engine's ``step_times`` and ``rsp.engine.step``).
-- Counters: ``add(name, n)``, integer sums kept always, on or off.
+- Counters: ``add(name, n)``, integer sums kept always, on or off:
+  ``loader.h2d_calls`` and ``loader.h2d_bytes`` (``data/device_cache.py``:
+  the engines' host-to-card clip copies), ``backbone.stem_pad_calls``
+  (``models/common.py``: forwards of ``SpaceToDepthConv3d``, the packed
+  and channel-padded RGB stem; 2 a pretrain step in bf16 on a card).
 
 The tracer is on exactly while a ``torch.profiler`` session is active in
 the process (torch's process-wide flag; ``_profiler_enabled()`` is the

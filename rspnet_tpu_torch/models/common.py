@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..framework import tracing
 from ..ops import max_pool3d as _pool
 from ..parallel.collectives import (all_gather_rows, all_reduce_mean,
                                     all_reduce_sum)
@@ -158,16 +159,131 @@ def set_bn_process_group(model: nn.Module, group) -> None:
             m.process_group = group
 
 
+def packs_stem(conv: nn.Conv3d, x: torch.Tensor, dtype: torch.dtype) -> bool:
+    """Whether ``conv3d`` runs ``conv`` on ``x`` as ``SpaceToDepthConv3d``:
+    in bf16 or fp16 on CUDA, with fewer than 8 input channels (the RGB
+    stems), no groups and a spatial stride of 2.
+
+    At 3 channels a bf16 NDHWC pixel is 6 bytes, and cuDNN's heuristics run
+    most of these stems (the 7x7 ones with 64 outputs) as an f32 FFMA kernel
+    between two layout transposes; zero-padded to 4 or 8 channels they
+    stay there and take up to twice as long. Folding each 2x2 block of
+    pixels into the channels turns the stride-2 convolution into a stride-1
+    one on 12 (padded to 16) channels, which cuDNN runs on tensor cores.
+    C3D's stride-1 stem keeps the plain call: cuDNN already runs it on
+    tensor cores (chip_smoke.py's stem phase times both paths and names the
+    kernels)."""
+    return (dtype in (torch.bfloat16, torch.float16) and x.is_cuda
+            and conv.in_channels < 8 and conv.groups == 1
+            and tuple(conv.stride[1:]) == (2, 2))
+
+
+def _space_to_depth(t: torch.Tensor, lead: Tuple[int, int],
+                    size: Tuple[int, int], channels: int,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """``t`` [N, C, T, H, W] placed at row ``lead[0]`` and column
+    ``lead[1]`` of a zero plane of 2 ``size`` (rows and columns past it
+    dropped), each 2x2 block of the plane folded into 4C channels in
+    (row, column, channel) order: [N, ``channels``, T, *``size``] in
+    ``dtype`` and channels-last memory, channels past 4C zero.
+
+    Two passes, the cast into the plane and the fold: one strided copy a
+    block element straight from ``t`` is slower on the card (its 3-channel
+    writes into 16-channel pixels do not coalesce; PERF.md)."""
+    n, c, d, h, w = t.shape
+    (ph, pw), (hx, wx) = lead, size
+    hh, ww = min(h, 2 * hx - ph), min(w, 2 * wx - pw)
+    plane = t.new_zeros((n, d, 2 * hx, 2 * wx, c), dtype=dtype)
+    plane[:, :, ph:ph + hh, pw:pw + ww] = t.movedim(1, -1)[:, :, :hh, :ww]
+    out = t.new_zeros((n, d, hx, wx, channels), dtype=dtype)
+    out[..., :4 * c].view(n, d, hx, wx, 2, 2, c).copy_(
+        plane.view(n, d, hx, 2, wx, 2, c).transpose(3, 4))
+    return out.movedim(-1, 1)
+
+
+def _depth_to_space(t: torch.Tensor, c: int, lead: Tuple[int, int],
+                    shape: Tuple[int, int]) -> torch.Tensor:
+    """The adjoint of ``_space_to_depth``: the [N, C, T, *``shape``] rows
+    and columns of the unfolded plane (0 where the plane dropped them)."""
+    n, _, d, hx, wx = t.shape
+    (ph, pw), (h, w) = lead, shape
+    hh, ww = min(h, 2 * hx - ph), min(w, 2 * wx - pw)
+    plane = t.movedim(1, -1)[..., :4 * c].reshape(
+        n, d, hx, wx, 2, 2, c).transpose(3, 4).reshape(
+        n, d, 2 * hx, 2 * wx, c)
+    out = plane.new_zeros((n, d, h, w, c))
+    out[:, :, :hh, :ww] = plane[:, :, ph:ph + hh, pw:pw + ww]
+    return out.movedim(-1, 1)
+
+
+def _pack_stem(x: torch.Tensor, weight: torch.Tensor, stride, padding):
+    """``SpaceToDepthConv3d``'s packed input and weight (in ``weight``'s
+    dtype) and the stride and padding of their convolution."""
+    c, (kh, kw) = x.shape[1], weight.shape[3:]
+    (h, w), (ph, pw) = x.shape[3:], padding[1:]
+    taps = ((kh + 1) // 2, (kw + 1) // 2)
+    size = ((h + 2 * ph - kh) // 2 + taps[0], (w + 2 * pw - kw) // 2 + taps[1])
+    channels = -(-4 * c // 8) * 8
+    return (_space_to_depth(x, (ph, pw), size, channels, weight.dtype),
+            _space_to_depth(weight, (0, 0), taps, channels, weight.dtype),
+            (stride[0], 1, 1), (padding[0], 0, 0))
+
+
+class SpaceToDepthConv3d(torch.autograd.Function):
+    """``F.conv3d(x.to(w.dtype), w, None, stride, padding)`` for a spatial
+    stride of 2, as a stride-(t, 1, 1) convolution of 2x2 pixel blocks:
+    the input, zero-padded in H and W, with each 2x2 block folded into
+    4C channels (zero-padded to a multiple of 8), and the weight, its
+    taps zero-padded to an even count and folded alike, so that every
+    product of the plain call appears once and the added ones are exact
+    zeros. The packed input lives only inside the forward and the
+    backward: the backward keeps the unpacked input in ``w``'s dtype (what
+    the plain call keeps) and packs it again; the weight gradient is the
+    packed one unfolded. The output is channels-last. Each forward counts
+    ``backbone.stem_pad_calls``."""
+
+    @staticmethod
+    def forward(ctx, x, weight, stride, padding):
+        tracing.add("backbone.stem_pad_calls")
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            x = x.to(weight.dtype)
+            ctx.save_for_backward(x, weight)
+            ctx.conv = (stride, padding)
+        x_packed, w_packed, stride, padding = _pack_stem(
+            x, weight, stride, padding)
+        y = F.conv3d(x_packed, w_packed, None, stride, padding)
+        return y.contiguous(memory_format=torch.channels_last_3d)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        need_x, need_w = ctx.needs_input_grad[:2]
+        x_packed, w_packed, stride, padding = _pack_stem(x, weight, *ctx.conv)
+        grad_x, grad_w, _ = torch.ops.aten.convolution_backward(
+            grad, x_packed, w_packed, None, stride, padding, (1, 1, 1),
+            False, (0, 0, 0), 1, (need_x, need_w, False))
+        c, pads = x.shape[1], tuple(ctx.conv[1][1:])
+        return (_depth_to_space(grad_x, c, pads, x.shape[3:])
+                if need_x else None,
+                _depth_to_space(grad_w, c, (0, 0), weight.shape[3:])
+                if need_w else None, None, None)
+
+
 def conv3d(conv: nn.Conv3d, x: torch.Tensor,
            dtype: Optional[torch.dtype]) -> torch.Tensor:
     """``conv`` as flax's ``nn.Conv(dtype=...)`` computes it: input, weight
     and bias cast to ``dtype`` (the input's dtype if None), the bias added
     to the rounded convolution. The output keeps a channels-last input's
     memory format (cuDNN keeps it; the CPU's one-thread 1^3 convolution
-    returns NCDHW, which would put a copy before the next pool)."""
+    returns NCDHW, which would put a copy before the next pool). The RGB
+    stems run as ``SpaceToDepthConv3d`` where ``packs_stem`` says so."""
     dt = dtype or x.dtype
-    y = F.conv3d(x.to(dt), conv.weight.to(dt), None, conv.stride,
-                 conv.padding, groups=conv.groups)
+    if packs_stem(conv, x, dt):
+        y = SpaceToDepthConv3d.apply(x, conv.weight.to(dt), conv.stride,
+                                     conv.padding)
+    else:
+        y = F.conv3d(x.to(dt), conv.weight.to(dt), None, conv.stride,
+                     conv.padding, groups=conv.groups)
     if x.is_contiguous(memory_format=torch.channels_last_3d):
         y = y.contiguous(memory_format=torch.channels_last_3d)
     if conv.bias is not None:
