@@ -16,7 +16,9 @@ from rspnet_tpu_torch.moco import build_moco_model, init_moco_state
 from rspnet_tpu_torch.moco import train_step
 from rspnet_tpu_torch.ops.augment import augment_batch, sample_train_params
 
-ARCHS = ["s3dg", "resnet18"]
+# every backbone file of the reference, found by name: a new one is held
+# to the port here without an edit
+ARCHS = models.available()
 MEAN, STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
 
 

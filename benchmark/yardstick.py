@@ -2,10 +2,11 @@
 kernel must move at a cell's shapes, and the model FLOPs of a step.
 
 Everything here is counted from shapes on the benchmark's own plain model
-(``reference/models.py``) on the ``meta`` device: no number comes from the
-program under test. Bytes follow the roofline rule: each input byte is
-read once and each output byte written once, whatever a kernel reads
-again (the pool backward's route buffer is not counted).
+(``reference/models.py``, the backbone from ``reference/backbones/``) on
+the ``meta`` device: no number comes from the program under test. Bytes
+follow the roofline rule: each input byte is read once and each output
+byte written once, whatever a kernel reads again (the pool backward's
+route buffer is not counted).
 
 - K1, the max-pool forward: input + output.
 - K2, the max-pool backward (route and gather passes together): the
