@@ -16,6 +16,13 @@
   up to the step's. ``Phase.device_ms`` resolves the pair after the
   window; on the CPU a phase's device time is its host time. Phases run
   on the thread that calls ``begin_step`` and do not nest.
+- ``device_span(name)``: a span with a device time of its own, which may
+  nest inside a phase. On a card it records a pair of CUDA events of its
+  own on the step's stream, and leaves the phase chain as it is: the
+  phases' device times still tile the step. ``rsp.backbone.spatial`` and
+  ``rsp.backbone.temporal`` (``models/r2plus1d.py``: the two halves of a
+  factored convolution, 12 of each a forward of R(2+1)D-10) are such
+  spans.
 - ``Stopwatch(name)``: a span that always times its body (``ms``), on or
   off, so that a caller's own timing and its span come from the same two
   clock reads (the engine's ``step_times`` and ``rsp.engine.step``).
@@ -23,13 +30,16 @@
   ``loader.h2d_calls`` and ``loader.h2d_bytes`` (``data/device_cache.py``:
   the engines' host-to-card clip copies), ``backbone.stem_pad_calls``
   (``models/common.py``: forwards of ``SpaceToDepthConv3d``, the packed
-  and channel-padded RGB stem; 2 a pretrain step in bf16 on a card).
+  and channel-padded RGB stem; 2 a pretrain step in bf16 on a card),
+  ``backbone.factored_conv_calls`` (``models/r2plus1d.py``: forwards of
+  ``SpatioTemporalConv``, 12 a forward of R(2+1)D-10 and so 24 a
+  pretrain step).
 
 The tracer is on exactly while a ``torch.profiler`` session is active in
 the process (torch's process-wide flag; ``_profiler_enabled()`` is the
 calling thread's, and the loader's producer thread reads False there).
-Off, ``span`` and ``phase`` cost one check and return the shared no-op
-context ``OFF``: no ``record_function``, no CUDA event, no allocation. The
+Off, ``span``, ``phase`` and ``device_span`` cost one check and return the
+shared no-op context ``OFF``: no ``record_function``, no CUDA event, no allocation. The
 first span (or ``spans()`` call) that finds the profiler on after the
 tracer last found it off starts a fresh buffer, so that a reader after a
 window sees that window's spans only. The buffer keeps the newest
@@ -59,7 +69,8 @@ def _profiler_on() -> bool:
 
 
 class _Off:
-    """What ``span`` and ``phase`` return while the tracer is off."""
+    """What ``span``, ``phase`` and ``device_span`` return while the tracer
+    is off."""
     __slots__ = ()
 
     def __enter__(self):
@@ -131,6 +142,29 @@ class Phase(Span):
         return self._start_event.elapsed_time(self._end_event)
 
 
+class DeviceSpan(Span):
+    """A span with a pair of CUDA events of its own (see the module's
+    docstring): it may nest inside a phase and does not touch the chain."""
+    __slots__ = ("_start_event", "_end_event")
+
+    def __enter__(self):
+        super().__enter__()
+        self._start_event = self._end_event = None
+        stream = self._tracer._stream
+        if stream is not None:
+            self._start_event = torch.cuda.Event(enable_timing=True)
+            self._start_event.record(stream)
+        return self
+
+    def __exit__(self, *exc):
+        if self._start_event is not None:
+            self._end_event = torch.cuda.Event(enable_timing=True)
+            self._end_event.record(self._tracer._stream)
+        return super().__exit__(*exc)
+
+    device_ms = Phase.device_ms
+
+
 class Tracer:
     """Spans in a bounded buffer, a span stack per thread, counters."""
 
@@ -167,6 +201,9 @@ class Tracer:
 
     def phase(self, name: str):
         return Phase(self, name) if self.active() else OFF
+
+    def device_span(self, name: str):
+        return DeviceSpan(self, name) if self.active() else OFF
 
     def begin_step(self, step: int, device: Optional[torch.device] = None
                    ) -> None:
@@ -262,13 +299,13 @@ class Stopwatch:
 def summarize(spans: List[Span]) -> List[Tuple[str, int, float,
                                                Optional[float]]]:
     """Per span name, in the order first seen: (name, count, host ms summed,
-    device ms summed for phases, else None)."""
+    device ms summed for phases and device spans, else None)."""
     rows: Dict[str, list] = {}
     for s in spans:
         row = rows.setdefault(s.name, [s.name, 0, 0.0, None])
         row[1] += 1
         row[2] += s.host_ms
-        if isinstance(s, Phase):
+        if isinstance(s, (Phase, DeviceSpan)):
             row[3] = (row[3] or 0.0) + s.device_ms()
     return [tuple(r) for r in rows.values()]
 
@@ -277,6 +314,7 @@ def summarize(spans: List[Span]) -> List[Tuple[str, int, float,
 TRACER = Tracer()
 span = TRACER.span
 phase = TRACER.phase
+device_span = TRACER.device_span
 begin_step = TRACER.begin_step
 spans = TRACER.spans
 add = TRACER.add

@@ -24,6 +24,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..framework import tracing
 from .common import (BatchNorm, IntOr3, _triple, conv3d, conv_bn, dense,
                      global_avg_pool, make_conv)
 
@@ -38,7 +39,12 @@ def intermediate_channels(kernel_size: Tuple[int, int, int],
 
 
 class SpatioTemporalConv(nn.Module):
-    """(1, kh, kw) conv -> BN -> ReLU -> bare (kt, 1, 1) conv."""
+    """(1, kh, kw) conv -> BN -> ReLU -> bare (kt, 1, 1) conv.
+
+    Each forward counts ``backbone.factored_conv_calls``; while the tracer
+    is on, the spatial half (conv, BN, ReLU) is the device span
+    ``rsp.backbone.spatial`` and the temporal conv ``rsp.backbone.temporal``
+    (framework/tracing.py)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: IntOr3, stride: IntOr3 = 1, padding: IntOr3 = 0,
@@ -54,8 +60,11 @@ class SpatioTemporalConv(nn.Module):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = conv_bn(self.spatial_conv, self.bn, x, self.dtype)
-        return conv3d(self.temporal_conv, x, self.dtype)
+        tracing.add("backbone.factored_conv_calls")
+        with tracing.device_span("rsp.backbone.spatial"):
+            x = conv_bn(self.spatial_conv, self.bn, x, self.dtype)
+        with tracing.device_span("rsp.backbone.temporal"):
+            return conv3d(self.temporal_conv, x, self.dtype)
 
 
 class ResBlock(nn.Module):
