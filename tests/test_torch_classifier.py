@@ -41,7 +41,7 @@ def _train_step(only_train_fc, n_crop):
     jm, params, stats = jax_variables(rng)
     optimizer = optax.chain(optax.add_decayed_weights(WD),
                             optax.sgd(LR, momentum=MOMENTUM))
-    state = TrainState(params, stats, optimizer.init(params),
+    state = TrainState(params, stats, jax.jit(optimizer.init)(params),
                        jnp.zeros((), jnp.int32))
     clips = rng.randn(B, n_crop * T, S, S, 3)
     labels = np.array([0, 3, 6, 3], np.int32)

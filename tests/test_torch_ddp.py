@@ -31,9 +31,10 @@ from rspnet_tpu.moco import MultiTaskWrapper as JaxWrapper
 from rspnet_tpu.moco.builder import MoCoState as JaxState
 from rspnet_tpu.moco.builder import make_variable_speed_train_steps
 from rspnet_tpu.parallel import create_mesh
+from tests.jax_models import init, np_tree
 from tests.test_step_parity import enable_x64
 from tests.test_torch_multispeed import _jax_draws
-from tests.test_torch_step import ATOL, RTOL, _np_tree, _port_model
+from tests.test_torch_step import ATOL, RTOL, _port_model
 from tests.torch_ddp_ranks import run_ranks
 from rspnet_tpu_torch.models.convert import variables_to_state_dict
 
@@ -54,8 +55,8 @@ def replica_perms(key, n=2, b=B):
 
 
 def assert_state(state, params, stats, what, arch="tsm"):
-    want = variables_to_state_dict({"params": _np_tree(params),
-                                    "batch_stats": _np_tree(stats)}, arch)
+    want = variables_to_state_dict({"params": np_tree(params),
+                                    "batch_stats": np_tree(stats)}, arch)
     for name, ref in want.items():
         np.testing.assert_allclose(state[name].numpy(), ref, atol=ATOL,
                                    rtol=RTOL, err_msg=f"{what}: {name}")
@@ -82,12 +83,11 @@ def jax_setup(axis_name, speeds, mesh, k=K):
     jmodel = JaxWrapper(encoder_factory=get_model_class("tsm", **MODEL_CFG),
                         num_classes=DIM, axis_name=axis_name)
     rng = np.random.RandomState(0)
-    variables = jax.jit(lambda k, v: jmodel.init(k, v, train=False))(
-        jax.random.PRNGKey(0), jnp.zeros((1, 4, S, S, 3), jnp.float32))
-    params_q = _np_tree(variables["params"])
+    variables = init(jmodel, (1, 4, S, S, 3))
+    params_q = np_tree(variables["params"])
     params_k = jax.tree_util.tree_map(
         lambda a: a + 0.05 * rng.randn(*a.shape), params_q)
-    stats = _np_tree(variables["batch_stats"])
+    stats = np_tree(variables["batch_stats"])
     queue = rng.randn(DIM, k)
     queue /= np.linalg.norm(queue, axis=0, keepdims=True)
     cfg = JaxMoCoConfig(dim=DIM, k=k, m=0.999, t=0.07, diff_speed=speeds)

@@ -50,11 +50,11 @@ from rspnet_tpu_torch.models import get_model_class as port_model_class
 from rspnet_tpu_torch.models.convert import state_dict_to_variables
 from rspnet_tpu_torch.moco import MultiTaskWrapper
 from tests.conftest import REPO_ROOT
+from tests.jax_models import init, np_tree
 from tests.test_step_parity import enable_x64
 from tests.test_torch_ddp import (ATOL, MODEL_CFG, OPT, RTOL, S, T,
                                   assert_state)
 from tests.test_torch_retrieval import ARTIFACTS, SYNTH
-from tests.test_torch_step import _np_tree
 from tests.torch_ddp_ranks import run_ranks
 from tests.torch_checkpoints import drop_checkpoints  # noqa: F401
 
@@ -79,13 +79,12 @@ def _finetune_jobs():
     rng = np.random.RandomState(4)
     jm = JaxWrapper(encoder_factory=get_model_class("tsm", **MODEL_CFG),
                     num_classes=C, finetune=True, axis_name="data")
-    v = jax.jit(lambda k, x: jm.init(k, x, train=False))(
-        jax.random.PRNGKey(0), jnp.zeros((1, 4, S, S, 3), jnp.float32))
+    v = init(jm, (1, 4, S, S, 3))
     params = jax.tree_util.tree_map(
-        lambda a: a + 0.05 * rng.randn(*a.shape), _np_tree(v["params"]))
+        lambda a: a + 0.05 * rng.randn(*a.shape), np_tree(v["params"]))
     stats = jax.tree_util.tree_map(
         lambda a: a + 0.1 * np.abs(rng.randn(*a.shape)),
-        _np_tree(v["batch_stats"]))
+        np_tree(v["batch_stats"]))
     net = MultiTaskWrapper(port_model_class("tsm", **MODEL_CFG)(),
                            num_classes=C, finetune=True).double()
     convert.load_variables(net, {"params": params, "batch_stats": stats},

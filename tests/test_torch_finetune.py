@@ -52,6 +52,7 @@ from rspnet_tpu_torch.moco import MultiTaskWrapper
 from rspnet_tpu_torch.moco.wrapper import dense
 from rspnet_tpu_torch.ops import augment as taug
 from tests.conftest import REPO_ROOT
+from tests.jax_models import init, np_tree
 from tests.test_step_parity import enable_x64
 from tests.test_torch_bf16 import _bf16_values, _within_ulps, ulp_bf16
 from tests.torch_checkpoints import drop_checkpoints  # noqa: F401
@@ -59,10 +60,6 @@ from tests.torch_checkpoints import drop_checkpoints  # noqa: F401
 torch.set_num_threads(1)
 ATOL, RTOL = 1e-8, 1e-7
 B, T, S, C = 4, 8, 32, 7
-
-
-def _np_tree(tree):
-    return jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), tree)
 
 
 def jax_classifier(num_classes=C, dtype=None):
@@ -75,14 +72,12 @@ def jax_variables(rng, num_classes=C):
     """f64 JAX variables of the multitask S3D-G classifier, moved off
     their init (BN running statistics too, so eval-mode BN normalizes)."""
     jm = jax_classifier(num_classes)
-    v = jax.jit(lambda k, x: jm.init(k, x, train=False))(
-        jax.random.PRNGKey(0), jnp.zeros((1, T, S, S, 3), jnp.float32))
+    v = init(jm, (1, T, S, S, 3))
     params = jax.tree_util.tree_map(
-        lambda a: jnp.asarray(a, jnp.float64)
-        + 0.05 * jnp.asarray(rng.randn(*a.shape)), v["params"])
+        lambda a: a + 0.05 * rng.randn(*a.shape), np_tree(v["params"]))
     stats = jax.tree_util.tree_map(
-        lambda a: jnp.asarray(a, jnp.float64)
-        + 0.1 * jnp.asarray(np.abs(rng.randn(*a.shape))), v["batch_stats"])
+        lambda a: a + 0.1 * np.abs(rng.randn(*a.shape)),
+        np_tree(v["batch_stats"]))
     return jm, params, stats
 
 
@@ -90,14 +85,14 @@ def port_classifier(params, stats, num_classes=C):
     net = MultiTaskWrapper(S3DG(), num_classes=num_classes,
                            finetune=True).double()
     net = net.to(memory_format=torch.channels_last_3d)
-    convert.load_variables(net, {"params": _np_tree(params),
-                                 "batch_stats": _np_tree(stats)})
+    convert.load_variables(net, {"params": np_tree(params),
+                                 "batch_stats": np_tree(stats)})
     return net
 
 
 def _assert_model(net, params, stats, what):
-    want = convert.variables_to_state_dict({"params": _np_tree(params),
-                                            "batch_stats": _np_tree(stats)})
+    want = convert.variables_to_state_dict({"params": np_tree(params),
+                                            "batch_stats": np_tree(stats)})
     got = net.state_dict()
     for name, ref in want.items():
         np.testing.assert_allclose(got[name].numpy(), ref, atol=ATOL,

@@ -46,6 +46,7 @@ from rspnet_tpu_torch.framework.lr_schedule import build_optimizer
 from rspnet_tpu_torch.moco import MoCoConfig, MoCoState
 from rspnet_tpu_torch.moco import step as tstep
 from tests.conftest import REPO_ROOT
+from tests.jax_models import init, np_tree
 from tests.test_step_parity import enable_x64
 from tests.test_torch_step import ATOL, RTOL, _assert_model, _port_model
 from tests.test_torch_zoo import release_jax_memory  # noqa: F401
@@ -121,14 +122,11 @@ def _two_speed_steps():
     jmodel = JaxWrapper(encoder_factory=get_model_class("tsm", **model_cfg),
                         num_classes=DIM, axis_name=None)
     rng = np.random.RandomState(0)
-    variables = jax.jit(lambda k, v: jmodel.init(k, v, train=False))(
-        jax.random.PRNGKey(0), jnp.zeros((1, 4, S, S, 3), jnp.float32))
-    f64 = lambda t: jax.tree_util.tree_map(  # noqa: E731
-        lambda a: jnp.asarray(a, jnp.float64), t)
-    params_q = f64(variables["params"])
+    variables = init(jmodel, (1, 4, S, S, 3))
+    params_q = np_tree(variables["params"])
     params_k = jax.tree_util.tree_map(
-        lambda a: a + 0.05 * jnp.asarray(rng.randn(*a.shape)), params_q)
-    stats = f64(variables["batch_stats"])
+        lambda a: a + 0.05 * rng.randn(*a.shape), params_q)
+    stats = np_tree(variables["batch_stats"])
     queue = rng.randn(DIM, K)
     queue /= np.linalg.norm(queue, axis=0, keepdims=True)
 
@@ -139,10 +137,10 @@ def _two_speed_steps():
     # the sharded step donates its state: no buffer twice
     state = JaxState(params_q=params_q, params_k=params_k,
                      batch_stats_q=stats,
-                     batch_stats_k=jax.tree_util.tree_map(jnp.copy, stats),
+                     batch_stats_k=jax.tree_util.tree_map(np.copy, stats),
                      queue=jnp.asarray(queue),
                      queue_ptr=jnp.zeros((), jnp.int32),
-                     opt_state=optimizer.init(params_q),
+                     opt_state=jax.jit(optimizer.init)(params_q),
                      step=jnp.zeros((), jnp.int32))
     mesh = jax.sharding.Mesh(np.array(jax.devices()[:1]), ("data",))
     steps = make_variable_speed_train_steps(jmodel, optimizer, cfg, mesh)

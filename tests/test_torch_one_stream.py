@@ -109,7 +109,7 @@ def one_stream_steps(arch, n_steps=2, dropout_masks=None, seed=0,
         {"lr": lr, "momentum": momentum, "dampening": 0, "nesterov": False,
          "weight_decay": wd}), net.parameters(), lr)
     with enable_x64():
-        state = TrainState(params, stats, optimizer.init(params),
+        state = TrainState(params, stats, jax.jit(optimizer.init)(params),
                            jnp.zeros((), jnp.int32))
         step = jax.jit(make_classifier_train_step(jm, optimizer, n_crop=1,
                                                   axis_name=None))

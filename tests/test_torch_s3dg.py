@@ -18,14 +18,11 @@ from rspnet_tpu.models.s3dg import S3DG as JaxS3DG
 from rspnet_tpu_torch.models.convert import (load_converted,
                                              variables_to_state_dict)
 from rspnet_tpu_torch.models.s3dg import S3DG
+from tests.jax_models import init, np_tree
 from tests.test_step_parity import enable_x64
 
 torch.set_num_threads(1)
 ATOL, RTOL = 1e-8, 1e-7
-
-
-def _np_tree(tree):
-    return jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), tree)
 
 
 def test_s3dg_forward_and_gradients_match_jax():
@@ -33,15 +30,11 @@ def test_s3dg_forward_and_gradients_match_jax():
         model = JaxS3DG(with_classifier=False)
         rng = np.random.RandomState(0)
         x = rng.randn(2, 8, 32, 32, 3)
-        variables = jax.jit(lambda k, v: model.init(k, v, train=False))(
-            jax.random.PRNGKey(0), jnp.zeros((1, 8, 32, 32, 3), jnp.float32))
-        variables = jax.tree_util.tree_map(
-            lambda a: jnp.asarray(a, jnp.float64), dict(variables))
+        variables = np_tree(dict(init(model, (1, 8, 32, 32, 3))))
         # perturb every parameter so BN scale/bias leave their identity
         # init
         variables["params"] = jax.tree_util.tree_map(
-            lambda a: a + 0.1 * jnp.asarray(rng.randn(*a.shape)),
-            variables["params"])
+            lambda a: a + 0.1 * rng.randn(*a.shape), variables["params"])
         # cotangent scaled so the gradients are O(1): at 32x32 the deep
         # stages are 1x1, BN there sees 2 values per channel and amplifies
         # gradients ~1e4, which would make atol 1e-8 a 1e-12 relative test
@@ -56,15 +49,15 @@ def test_s3dg_forward_and_gradients_match_jax():
             variables["params"], variables["batch_stats"], jnp.asarray(x))
 
         net = S3DG().double().to(memory_format=torch.channels_last_3d)
-        load_converted(net, variables_to_state_dict(_np_tree(variables)))
+        load_converted(net, variables_to_state_dict(np_tree(variables)))
         net.train()
         out_t = net(torch.from_numpy(x))
         (out_t * torch.from_numpy(w)).sum().backward()
 
         np.testing.assert_allclose(out_t.detach().numpy(), np.asarray(out_j),
                                    atol=ATOL, rtol=RTOL)
-        want = variables_to_state_dict({"params": _np_tree(grads),
-                                        "batch_stats": _np_tree(stats_j)})
+        want = variables_to_state_dict({"params": np_tree(grads),
+                                        "batch_stats": np_tree(stats_j)})
         params = dict(net.named_parameters())
         buffers = dict(net.named_buffers())
         assert set(params) | {k for k in buffers

@@ -362,7 +362,7 @@ def test_linear_probe_trains_nothing_f11():
                             optax.sgd(0.1, momentum=0.9))
     with enable_x64():
         state = TrainState(v["params"], v["batch_stats"],
-                           optimizer.init(v["params"]),
+                           jax.jit(optimizer.init)(v["params"]),
                            jnp.zeros((), jnp.int32))
         step = jax.jit(make_classifier_train_step(
             jm, optimizer, axis_name=None, only_train_fc=True))

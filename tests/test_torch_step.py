@@ -27,15 +27,12 @@ from rspnet_tpu_torch.models.convert import (load_converted,
 from rspnet_tpu_torch.models import get_model_class as port_model_class
 from rspnet_tpu_torch.moco import MoCoConfig, MoCoState, MultiTaskWrapper
 from rspnet_tpu_torch.moco.step import train_step
+from tests.jax_models import init, np_tree
 from tests.test_step_parity import enable_x64
 
 torch.set_num_threads(1)
 ATOL, RTOL = 1e-8, 1e-7
 B, T, S, DIM, K = 4, 16, 32, 8, 16
-
-
-def _np_tree(tree):
-    return jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), tree)
 
 
 def _port_model(params, stats, arch="s3dg", model_cfg=None,
@@ -44,13 +41,13 @@ def _port_model(params, stats, arch="s3dg", model_cfg=None,
     net = MultiTaskWrapper(factory(), num_classes=DIM, fc_type=fc_type)
     net = net.double().to(memory_format=torch.channels_last_3d)
     load_converted(net, variables_to_state_dict(
-        {"params": _np_tree(params), "batch_stats": _np_tree(stats)}, arch))
+        {"params": np_tree(params), "batch_stats": np_tree(stats)}, arch))
     return net
 
 
 def _assert_model(net, params, stats, what, arch="s3dg"):
-    want = variables_to_state_dict({"params": _np_tree(params),
-                                    "batch_stats": _np_tree(stats)}, arch)
+    want = variables_to_state_dict({"params": np_tree(params),
+                                    "batch_stats": np_tree(stats)}, arch)
     got = net.state_dict()
     for name, ref in want.items():
         np.testing.assert_allclose(got[name].numpy(), ref, atol=ATOL,
@@ -75,16 +72,13 @@ def _run(arch="s3dg", model_cfg=None, fc_type="linear", factories=None):
     jmodel = JaxWrapper(encoder_factory=jax_factory,
                         num_classes=DIM, fc_type=fc_type, axis_name=None)
     rng = np.random.RandomState(0)
-    variables = jax.jit(lambda k, v: jmodel.init(k, v, train=False))(
-        jax.random.PRNGKey(0), jnp.zeros((1, T // 2, S, S, 3), jnp.float32))
-    f64 = lambda t: jax.tree_util.tree_map(  # noqa: E731
-        lambda a: jnp.asarray(a, jnp.float64), t)
-    params_q = f64(variables["params"])
+    variables = init(jmodel, (1, T // 2, S, S, 3))
+    params_q = np_tree(variables["params"])
     # the key encoder starts from other weights than the query encoder so
     # that the EMA is visible
     params_k = jax.tree_util.tree_map(
-        lambda a: a + 0.05 * jnp.asarray(rng.randn(*a.shape)), params_q)
-    stats = f64(variables["batch_stats"])
+        lambda a: a + 0.05 * rng.randn(*a.shape), params_q)
+    stats = np_tree(variables["batch_stats"])
     queue = rng.randn(DIM, K)
     queue /= np.linalg.norm(queue, axis=0, keepdims=True)
 
@@ -96,7 +90,7 @@ def _run(arch="s3dg", model_cfg=None, fc_type="linear", factories=None):
                      batch_stats_q=stats, batch_stats_k=stats,
                      queue=jnp.asarray(queue),
                      queue_ptr=jnp.zeros((), jnp.int32),
-                     opt_state=optimizer.init(params_q),
+                     opt_state=jax.jit(optimizer.init)(params_q),
                      step=jnp.zeros((), jnp.int32))
     step = jax.jit(make_train_step(jmodel, optimizer, cfg, axis_name=None))
     x_q = rng.randn(B, T, S, S, 3)

@@ -49,6 +49,7 @@ from rspnet_tpu_torch.models import convert
 from rspnet_tpu_torch.models.s3dg import S3DG
 from rspnet_tpu_torch.moco import MultiTaskWrapper
 from tests.conftest import REPO_ROOT
+from tests.jax_models import init, jit_apply
 from tests.test_step_parity import enable_x64
 from tests.test_torch_finetune import finetune_argv
 from tests.test_torch_pretrain import _argv as pretrain_argv
@@ -57,11 +58,6 @@ from tests.torch_checkpoints import drop_checkpoints  # noqa: F401
 torch.set_num_threads(1)
 ATOL, RTOL = 1e-8, 1e-7
 T, S, DIM, K, C = 8, 32, 128, 8, 4
-
-
-def _init(model):
-    return jax.jit(lambda k, x: model.init(k, x, train=False))(
-        jax.random.PRNGKey(0), jnp.zeros((1, T, S, S, 3), jnp.float32))
 
 
 @pytest.fixture(scope="module")
@@ -76,10 +72,10 @@ def jax_vars():
                        ).astype(np.float32), v)
 
     s3dg = get_model_class("s3dg")
-    pre = _init(JaxWrapper(encoder_factory=s3dg, num_classes=DIM,
-                           axis_name=None))
-    fine = _init(JaxWrapper(encoder_factory=s3dg, num_classes=C,
-                            finetune=True, axis_name=None))
+    pre = init(JaxWrapper(encoder_factory=s3dg, num_classes=DIM,
+                          axis_name=None), (1, T, S, S, 3))
+    fine = init(JaxWrapper(encoder_factory=s3dg, num_classes=C,
+                           finetune=True, axis_name=None), (1, T, S, S, 3))
     return {"pretrain": {k: moved(v) for k, v in pre.items()},
             "finetune": {k: moved(v) for k, v in fine.items()}}
 
@@ -137,7 +133,7 @@ def _jax_pretrain_file(path, v):
                   "batch_stats_q": v["batch_stats"],
                   "batch_stats_k": v["batch_stats"], "queue": queue,
                   "queue_ptr": np.asarray(2, np.int32)},
-        "best_loss": 1.5, "optimizer": opt.init(v["params"]),
+        "best_loss": 1.5, "optimizer": jax.jit(opt.init)(v["params"]),
         "scheduler": {"epoch": 3, "lr": 0.1, "base_lr": 0.1}}, path)
     return params_k, queue
 
@@ -229,9 +225,9 @@ def test_finetune_checkpoints_cross_packages(jax_vars, tmp_path, monkeypatch):
         eng.load_model_only(path)
         jm = JaxWrapper(encoder_factory=get_model_class("s3dg"),
                         num_classes=C, finetune=True, axis_name=None)
-        ref = np.asarray(jm.apply({"params": eng.state.params,
-                                   "batch_stats": eng.state.batch_stats},
-                                  jnp.asarray(x), train=False))
+        ref = np.asarray(jit_apply(jm)({"params": eng.state.params,
+                                        "batch_stats": eng.state.batch_stats},
+                                       jnp.asarray(x)))
     port.model.eval()
     with torch.no_grad():
         logits = classifier.classify(port.model, torch.from_numpy(x))
@@ -244,7 +240,8 @@ def test_finetune_checkpoints_cross_packages(jax_vars, tmp_path, monkeypatch):
         {"lr": 0.005, "momentum": 0.9, "weight_decay": 1e-4}), 0.005)
     jpath = tmp_path / "jax_finetune.pth.tar"
     jax_save_state({"epoch": 2, "arch": "s3dg", "model": v,
-                    "best_acc1": 10.0, "optimizer": opt.init(v["params"]),
+                    "best_acc1": 10.0,
+                    "optimizer": jax.jit(opt.init)(v["params"]),
                     "scheduler": {"epoch": 2, "lr": 0.005,
                                   "base_lr": 0.005}}, jpath)
     other = ft_engine.FinetuneEngine(*bootstrap(finetune_argv(tmp_path /

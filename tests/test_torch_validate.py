@@ -26,9 +26,10 @@ from rspnet_tpu_torch import pretrain
 from rspnet_tpu_torch.moco import MoCoConfig, MoCoState
 from rspnet_tpu_torch.moco.step import eval_step
 from tests.conftest import REPO_ROOT
+from tests.jax_models import init, np_tree
 from tests.test_step_parity import enable_x64
 from tests.test_torch_pretrain import _argv
-from tests.test_torch_step import _np_tree, _port_model
+from tests.test_torch_step import _port_model
 from tests.torch_checkpoints import drop_checkpoints  # noqa: F401
 
 torch.set_num_threads(1)
@@ -53,19 +54,16 @@ def _run():
     jmodel = JaxWrapper(encoder_factory=get_model_class("s3dg"),
                         num_classes=DIM, fc_type="linear", axis_name=None)
     rng = np.random.RandomState(0)
-    variables = jax.jit(lambda k, v: jmodel.init(k, v, train=False))(
-        jax.random.PRNGKey(0), jnp.zeros((1, T // 2, S, S, 3), jnp.float32))
-    f64 = lambda t: jax.tree_util.tree_map(  # noqa: E731
-        lambda a: jnp.asarray(a, jnp.float64), t)
+    variables = init(jmodel, (1, T // 2, S, S, 3))
     params_q = jax.tree_util.tree_map(
-        lambda a: a + 0.1 * jnp.asarray(rng.randn(*a.shape)),
-        f64(variables["params"]))
+        lambda a: a + 0.1 * rng.randn(*a.shape),
+        np_tree(variables["params"]))
     params_k = jax.tree_util.tree_map(
-        lambda a: a + 0.05 * jnp.asarray(rng.randn(*a.shape)), params_q)
+        lambda a: a + 0.05 * rng.randn(*a.shape), params_q)
     # running statistics away from their init, so eval-mode BN normalizes
     stats = jax.tree_util.tree_map(
-        lambda a: a + 0.1 * jnp.asarray(np.abs(rng.randn(*a.shape))),
-        f64(variables["batch_stats"]))
+        lambda a: a + 0.1 * np.abs(rng.randn(*a.shape)),
+        np_tree(variables["batch_stats"]))
     queue = rng.randn(DIM, K)
     queue /= np.linalg.norm(queue, axis=0, keepdims=True)
     cfg = JaxMoCoConfig(dim=DIM, k=K, m=0.999, t=0.07, diff_speed=(2,),
