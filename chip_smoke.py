@@ -98,9 +98,7 @@ Phases, each printing its own lines:
      [B, 8, 56, 56, 64] (1,3,3)/(1,2,2)/(0,1,1), at batch 64 and at the
      key pass's 128, and time them; and time K3 on the two legs' f32
      clips, [64, 16, 112, 112, 3] and [32, 32, 112, 112, 3], naming the
-     instance that takes each. With ``--profile`` the two pretrain legs
-     are traced, and R(2+1)D's odd-width convolutions (83 and 921 middle
-     channels) are run alone under the profiler, naming their kernels.
+     instance that takes each.
  11. the rest of the zoo, bf16 at the published widths: 3 steps each of
      ``rspnet_tpu_torch.pretrain.main`` on config/pretrain/moco-train-base
      .jsonnet with ``arch: "slowfast"`` and the cfg_file
@@ -121,7 +119,7 @@ Phases, each printing its own lines:
      whose last row and column lie in no window and take exactly 0 from
      K2, MFNet's stem pool [B, 16, 56, 56, 16], C2D / I3D's (2,1,1)
      temporal pool [B, 8, 28, 28, 256]) at batch 64 (K1 also at 128), and
-     time them. With ``--profile`` the three legs are traced.
+     time them.
  12. the pretrain engine's options, bf16 at the published widths: 3 steps
      of ``rspnet_tpu_torch.pretrain.main`` on config/pretrain/s3dg.jsonnet
      (batch 64, 224², K 16384) with ``moco+: {aug_plus: true, diff_speed:
@@ -136,7 +134,7 @@ Phases, each printing its own lines:
      rows unjittered) and phases 2/3 hold K1/K2 bit-equal at the speed-2
      branch's 13 sites (32 frames; batch 64, K1 also 128) and time them,
      time K3 in this mode, and time the blur alone, checked against the
-     CPU. With ``--profile`` the leg is traced.
+     CPU.
  13. more than one rank, on the one card (two processes share it: the
      numbers measure the collectives' overhead, not scaling), at full
      width (config/pretrain/s3dg.jsonnet, 224², T 32 -> 16, K 16384,
@@ -1115,23 +1113,6 @@ def time_blur(dev, clips: int, frames: int, size: int) -> dict:
 # phase 15: the RGB stems, plain against packed
 # ---------------------------------------------------------------------------
 
-def _kernel_names(fn) -> list:
-    """(device ms, name) of the kernels one call of ``fn`` launches, the
-    longest first."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    out = []
-    for e in prof.key_averages():
-        us = float(getattr(e, "self_device_time_total",
-                           getattr(e, "self_cuda_time_total", 0.0)))
-        if us > 0:
-            out.append((us / 1e3, e.key))
-    return sorted(out, reverse=True)
-
-
 def _max_err(got, ref) -> float:
     return float((got.detach().float() - ref).abs().max())
 
@@ -1164,6 +1145,7 @@ def time_stems(dev) -> dict:
     slower."""
     import torch
     import torch.nn.functional as F
+    from rspnet_tpu_torch.framework import tracing
     from rspnet_tpu_torch.models.common import conv3d, packs_stem
 
     bf = torch.bfloat16
@@ -1206,8 +1188,8 @@ def time_stems(dev) -> dict:
                 "q_fwd_ms": time_calls_ms(lambda: call(x)),
                 "wgrad_ms": time_calls_ms(wgrad),
                 "err_y": _max_err(y, y32), "err_w": _max_err(gw, gw32),
-                "fwd_kernels": _kernel_names(key_fwd),
-                "wgrad_kernels": _kernel_names(wgrad)}
+                "fwd_kernels": tracing.device_kernels(key_fwd),
+                "wgrad_kernels": tracing.device_kernels(wgrad)}
             rows[label]["sum_ms"] = sum(rows[label][f"{p}_ms"] for p in (
                 "key_fwd", "q_fwd", "wgrad"))
             del y, gw
@@ -1250,30 +1232,34 @@ def time_stems(dev) -> dict:
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 
-def _counters():
-    from rspnet_tpu_torch.ops import color_augment as ca
-    from rspnet_tpu_torch.ops import max_pool3d as mp
-    return (mp.launches, mp.launches_by_dtype, mp.plain_cuda_calls,
-            ca.launches, ca.plain_cuda_calls)
+KERNELS = ("max_pool3d_fwd", "max_pool3d_bwd", "color_augment")
 
 
-def _reset_counters() -> None:
-    for c in _counters():
-        for key in c:
-            c[key] = 0
-
-
-def _read_counters():
-    """(launches by kernel, K1/K2 launches by dtype, plain-version calls on
-    CUDA tensors)"""
-    mp_l, mp_d, mp_p, ca_l, ca_p = _counters()
-    return {**mp_l, **ca_l}, dict(mp_d), {**mp_p, **ca_p}
-
-
-def _stem_pads() -> int:
-    """Forwards of the packed stem convolution so far."""
+def _counters() -> dict:
+    """The port's counters (``framework/tracing.py``) so far."""
     from rspnet_tpu_torch.framework import tracing
-    return tracing.counter("backbone.stem_pad_calls")
+    return tracing.counters()
+
+
+def _moved(before: dict):
+    """What the counters moved since ``before`` (a ``_counters()``):
+    (launches by kernel, K1/K2 launches by dtype, plain-version calls on
+    CUDA tensors, packed stem forwards, host-to-device clip copies)."""
+    now = _counters()
+
+    def moved(name):
+        return now.get(name, 0) - before.get(name, 0)
+
+    by_dtype = {f"{k}.{t}": moved(f"kernels.{k}.{t}")
+                for k in KERNELS[:2] for t in ("float32", "bfloat16")}
+    counts = {k: by_dtype[f"{k}.float32"] + by_dtype[f"{k}.bfloat16"]
+              for k in KERNELS[:2]}
+    counts["color_augment"] = (moved("kernels.color_augment.uint8")
+                               + moved("kernels.color_augment.float32"))
+    plain = {k: moved(f"kernels.{k}.plain_on_cuda") for k in KERNELS}
+    copies = {"calls": moved("loader.h2d_calls"),
+              "bytes": moved("loader.h2d_bytes")}
+    return counts, by_dtype, plain, moved("backbone.stem_pad_calls"), copies
 
 
 def _main_argv(exp: str, *more: str,
@@ -1284,7 +1270,7 @@ def _main_argv(exp: str, *more: str,
             "--device", "cuda", *more]
 
 
-def main_path(batch: int, exp: str, profile: bool = False) -> dict:
+def main_path(batch: int, exp: str) -> dict:
     """Phase 4: 3 train steps through the CLI entry point with ``--ws 1``
     (also phase 13 (d): one process, no group, no collective); returns the
     launches, step times, peak memory and the checkpoint it wrote."""
@@ -1294,21 +1280,12 @@ def main_path(batch: int, exp: str, profile: bool = False) -> dict:
 
     argv = _main_argv(exp, "--ws", "1")
     torch.cuda.reset_peak_memory_stats()
-    _reset_counters()
-    pads = _stem_pads()
+    before = _counters()
     t0 = time.perf_counter()
-    if profile:
-        from torch.profiler import ProfilerActivity
-        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts,
-                                    record_shapes=True) as prof:
-            engine = pretrain.main(argv)
-            torch.cuda.synchronize()
-    else:
-        engine = pretrain.main(argv)
+    engine = pretrain.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts, by_dtype, plain = _read_counters()
+    counts, by_dtype, plain, pads, _ = _moved(before)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     loss = engine.meters["loss"].avg
     ckpt = os.path.join(exp, "checkpoint.pth.tar")
@@ -1333,12 +1310,9 @@ def main_path(batch: int, exp: str, profile: bool = False) -> dict:
     require(os.path.exists(ckpt), "checkpoint.pth.tar was not written")
     require(not dist.is_initialized() and engine.mesh.group is None,
             "main path: --ws 1 made a process group")
-    pads = _stem_pads() - pads
     print(f"main path: {pads} packed stem forwards", flush=True)
     require(pads == 2 * len(steps), f"main path: {pads} packed stem "
             f"forwards, not 2 a step (key pass and q pass)")
-    if profile:
-        report_profile(prof, wall)
     return {"launches": counts, "steps_ms": steps, "peak_gib": peak,
             "checkpoint": ckpt}
 
@@ -1352,13 +1326,13 @@ def validate_path(exp: str, ckpt: str) -> dict:
     from rspnet_tpu_torch.framework import load_state
     from rspnet_tpu_torch.models import convert
 
-    _reset_counters()
+    before = _counters()
     t0 = time.perf_counter()
     engine = pretrain.main(_main_argv(exp, "--validate", "--load-checkpoint",
                                       ckpt))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts, by_dtype, plain = _read_counters()
+    counts, by_dtype, plain, *_ = _moved(before)
     saved = load_state(ckpt)["model"]
     s = engine.state
 
@@ -1410,7 +1384,7 @@ def _finetune_argv(exp: str, *more: str, config: str = FT_CONFIG,
             "0", "--device", "cuda", *more]
 
 
-def finetune_path(exp: str, pretrained: str, profile: bool = False) -> dict:
+def finetune_path(exp: str, pretrained: str) -> dict:
     """Phase 6: ``--mc`` from phase 4's checkpoint, one precise-BN batch,
     3 train steps, one validation batch and the final 10-crop validation,
     through the CLI entry point; returns the launches and the times."""
@@ -1419,20 +1393,12 @@ def finetune_path(exp: str, pretrained: str, profile: bool = False) -> dict:
 
     argv = _finetune_argv(exp, "--mc", pretrained)
     torch.cuda.reset_peak_memory_stats()
-    _reset_counters()
+    before = _counters()
     t0 = time.perf_counter()
-    if profile:
-        from torch.profiler import ProfilerActivity
-        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts,
-                                    record_shapes=True) as prof:
-            engine, final = finetune.main(argv)
-            torch.cuda.synchronize()
-    else:
-        engine, final = finetune.main(argv)
+    engine, final = finetune.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts, by_dtype, plain = _read_counters()
+    counts, by_dtype, plain, *_ = _moved(before)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     steps = engine.step_times
     train = {k: engine.train_meters[k].avg for k in ("loss", "acc1", "acc5")}
@@ -1464,8 +1430,6 @@ def finetune_path(exp: str, pretrained: str, profile: bool = False) -> dict:
             f"K1/K2 launched off bf16 on the finetune path: {by_dtype}")
     require(not any(plain.values()),
             f"plain versions ran on CUDA tensors: {plain}")
-    if profile:
-        report_profile(prof, wall)
     return {"launches": counts, "steps_ms": steps, "peak_gib": peak,
             "checkpoint": os.path.join(exp, "checkpoint.pth.tar")}
 
@@ -1478,13 +1442,13 @@ def finetune_validate_path(exp: str, ckpt: str) -> dict:
     from rspnet_tpu_torch import finetune
 
     torch.cuda.reset_peak_memory_stats()
-    _reset_counters()
+    before = _counters()
     t0 = time.perf_counter()
     engine, final = finetune.main(_finetune_argv(
         exp, "--validate", "--load-checkpoint", ckpt))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts, by_dtype, plain = _read_counters()
+    counts, by_dtype, plain, *_ = _moved(before)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"finetune validate: {FT_FINAL_BATCH} clips of {FT_FRAMES} frames "
           f"in one batch, wall {wall:.1f} s, peak memory {peak:.2f} GiB, "
@@ -1507,9 +1471,8 @@ def finetune_validate_path(exp: str, ckpt: str) -> dict:
 # phase 7: the C3D and ResNet-18 pretrain legs
 # ---------------------------------------------------------------------------
 
-def zoo_pretrain_path(arch: str, exp: str, profile: bool = False,
-                      config: str = None, batch: int = None,
-                      frames: int = 32, pool_calls=None,
+def zoo_pretrain_path(arch: str, exp: str, config: str = None,
+                      batch: int = None, frames: int = 32, pool_calls=None,
                       fields: str = "") -> dict:
     """Phase 7 (and 10, 11): 3 bf16 train steps of
     ``config/pretrain/{arch}.jsonnet`` (or ``config`` with the -x
@@ -1525,21 +1488,12 @@ def zoo_pretrain_path(arch: str, exp: str, profile: bool = False,
     plan = color_plan_line((batch, frames, 112, 112, 3), False)
     argv = _main_argv(exp, config=config, fields=fields)
     torch.cuda.reset_peak_memory_stats()
-    _reset_counters()
-    pads = _stem_pads()
+    before = _counters()
     t0 = time.perf_counter()
-    if profile:
-        from torch.profiler import ProfilerActivity
-        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts,
-                                    record_shapes=True) as prof:
-            engine = pretrain.main(argv)
-            torch.cuda.synchronize()
-    else:
-        engine = pretrain.main(argv)
+    engine = pretrain.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts, by_dtype, plain = _read_counters()
+    counts, by_dtype, plain, pads, _ = _moved(before)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     loss = engine.meters["loss"].avg
     steps = engine.step_times
@@ -1578,12 +1532,9 @@ def zoo_pretrain_path(arch: str, exp: str, profile: bool = False,
             f"plain versions ran on CUDA tensors: {plain}")
     require(os.path.exists(ckpt), f"{arch}: no checkpoint.pth.tar")
     # SlowFast has a stem on each pathway; C3D's stride-1 stem is not packed
-    pads = _stem_pads() - pads
     want = 2 * len(steps) * {"slowfast": 2, "c3d": 0}.get(arch, 1)
     require(pads == want, f"{arch} pretrain: {pads} packed stem forwards, "
             f"not {want}")
-    if profile:
-        report_profile(prof, wall)
     return {"launches": counts, "steps_ms": steps, "peak_gib": peak,
             "checkpoint": ckpt}
 
@@ -1595,8 +1546,7 @@ def zoo_pretrain_path(arch: str, exp: str, profile: bool = False,
 
 def finetune_leg(label: str, exp: str, pretrained, model_type: str,
                  config: str = R21D_FT_CONFIG, batch: int = R21D_FT_BATCH,
-                 val_clips: int = R21D_FT_BATCH, mixins=(),
-                 profile: bool = False) -> dict:
+                 val_clips: int = R21D_FT_BATCH, mixins=()) -> dict:
     """Phases 10 and 11: ``config`` (with the -x ``mixins``), from
     ``pretrained`` by ``--mc`` when given, as ``model_type``: 3 bf16 train
     steps of ``batch`` clips, one validation batch of ``val_clips`` clips,
@@ -1611,20 +1561,12 @@ def finetune_leg(label: str, exp: str, pretrained, model_type: str,
     more = ("--mc", pretrained) if pretrained else ()
     argv = _finetune_argv(exp, *more, config=config, ext=ext, mixins=mixins)
     torch.cuda.reset_peak_memory_stats()
-    _reset_counters()
+    before = _counters()
     t0 = time.perf_counter()
-    if profile:
-        from torch.profiler import ProfilerActivity
-        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts,
-                                    record_shapes=True) as prof:
-            engine, final = finetune.main(argv)
-            torch.cuda.synchronize()
-    else:
-        engine, final = finetune.main(argv)
+    engine, final = finetune.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts, by_dtype, plain = _read_counters()
+    counts, by_dtype, plain, *_ = _moved(before)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     steps = engine.step_times
     train = {k: engine.train_meters[k].avg for k in ("loss", "acc1", "acc5")}
@@ -1656,8 +1598,6 @@ def finetune_leg(label: str, exp: str, pretrained, model_type: str,
             f"{label} has no max pool, yet K1/K2 launched: {counts}")
     require(not any(plain.values()),
             f"plain versions ran on CUDA tensors: {plain}")
-    if profile:
-        report_profile(prof, wall)
     return {"launches": counts, "steps_ms": steps, "peak_gib": peak}
 
 
@@ -1685,57 +1625,6 @@ def check_floor_tail(dev, batch: int) -> None:
             f"K2 at {name}: the uncovered tail is not 0 or differs")
 
 
-def profile_odd_convs(dev) -> None:
-    """R(2+1)D's factored convolutions whose widths are no multiple of 8
-    (the stem's 83 middle channels, conv5's 921) and conv2's temporal conv
-    (144 middle channels) at the R(2+1)D pretrain leg's q-batch shapes,
-    bf16 channels-last, each alone under the profiler, forward and then
-    backward (no input gradient for the stem's first conv, as in the
-    model): the kernels cuDNN picks for them."""
-    import torch
-    import torch.nn.functional as F
-    from torch.profiler import ProfilerActivity, profile
-
-    shapes = [  # (name, input [B, C, T, H, W], out, kernel, stride, pad)
-        ("stem spatial 3->83 (1,7,7)/2", (32, 3, 16, 112, 112), 83,
-         (1, 7, 7), (1, 2, 2), (0, 3, 3)),
-        ("stem temporal 83->64 (3,1,1)", (32, 83, 16, 56, 56), 64,
-         (3, 1, 1), 1, (1, 0, 0)),
-        ("conv2 temporal 144->64 (3,1,1)", (32, 144, 16, 56, 56), 64,
-         (3, 1, 1), 1, (1, 0, 0)),
-        ("conv5 spatial 512->921 (1,3,3)", (32, 512, 2, 7, 7), 921,
-         (1, 3, 3), 1, (0, 1, 1)),
-        ("conv5 temporal 921->512 (3,1,1)", (32, 921, 2, 7, 7), 512,
-         (3, 1, 1), 1, (1, 0, 0)),
-    ]
-    for name, shape, out, k, st, pad in shapes:
-        x = torch.randn(shape, device=dev, dtype=torch.bfloat16).to(
-            memory_format=torch.channels_last_3d).requires_grad_(shape[1] > 3)
-        w = torch.randn((out, shape[1], *k), device=dev,
-                        dtype=torch.bfloat16).to(
-            memory_format=torch.channels_last_3d).requires_grad_()
-        y = F.conv3d(x, w, None, st, pad)
-        g = torch.randn_like(y)
-        y.backward(g)                                # warm-up
-        torch.cuda.synchronize()
-        for what in ("forward", "backward"):
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                if what == "forward":
-                    with torch.no_grad():
-                        F.conv3d(x, w, None, st, pad)
-                else:
-                    F.conv3d(x, w, None, st, pad).backward(g)
-                torch.cuda.synchronize()
-            for e in prof.key_averages():
-                us = float(getattr(e, "self_device_time_total",
-                                   getattr(e, "self_cuda_time_total", 0.0)))
-                if us > 0:
-                    print(f"profile odd conv {name} {what}: "
-                          f"{us / 1e3:8.3f} ms {e.key[:120]}", flush=True)
-        del x, w, y, g
-    torch.cuda.empty_cache()
-
-
 # ---------------------------------------------------------------------------
 # phase 8: retrieval
 # ---------------------------------------------------------------------------
@@ -1755,12 +1644,12 @@ def retrieval_path(arch: str, exp: str, pretrained: str) -> dict:
             "-x", ext, "-d", "--seed", "0", "--device", "cuda", "--mc",
             pretrained]
     torch.cuda.reset_peak_memory_stats()
-    _reset_counters()
+    before = _counters()
     t0 = time.perf_counter()
     engine, results = retrieval.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts, by_dtype, plain = _read_counters()
+    counts, by_dtype, plain, *_ = _moved(before)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     run_dir = engine.args.run_dir
     feats = {split: np.load(run_dir / f"{split}_fold1_feats.npy")
@@ -1842,8 +1731,7 @@ def visualization_path(exp: str, pretrained: str) -> dict:
            'device_geometry: true}' % VIS_BATCH)
     runs = []
     torch.cuda.reset_peak_memory_stats()
-    _reset_counters()
-    pads = _stem_pads()
+    before = _counters()
     t0 = time.perf_counter()
     for name in ("a", "b"):
         engine = visualization.main(
@@ -1855,7 +1743,7 @@ def visualization_path(exp: str, pretrained: str) -> dict:
         if name == "a":
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            counts, by_dtype, plain = _read_counters()
+            counts, by_dtype, plain, *_ = _moved(before)
             sizes = {png_size(p) for p in sorted(cam.iterdir())}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     want = {f"sample0_{b}_{n}.png" for b in range(VIS_BATCH)
@@ -1874,25 +1762,11 @@ def visualization_path(exp: str, pretrained: str) -> dict:
             f"visualization launched K2 or K3: {counts}")
     require(by_dtype["max_pool3d_fwd.bfloat16"] == 0,
             f"visualization launched K1 off f32: {by_dtype}")
-    require(_stem_pads() == pads,
+    require(_moved(before)[3] == 0,
             "visualization (f32) ran the packed stem")
     require(not any(plain.values()),
             f"plain versions ran on CUDA tensors: {plain}")
     return {"launches": counts, "wall_s": wall, "peak_gib": peak}
-
-
-_KERNEL_GROUPS = [
-    # pool_fwd also matches K1's tiled instances, pool_fwd_tile<...>
-    ("K1/K2 max pool", ("pool_fwd", "pool_route", "pool_gather",
-                        "route_tile", "gather_tile")),
-    ("K3 colour augment", ("augment_resident", "luma_partials",
-                           "apply_chain")),
-    ("batch norm", ("batch_norm", "batchnorm", "bn_")),
-    ("convolution", ("conv", "cudnn", "xmma", "implicit", "wgrad", "dgrad",
-                     "fprop", "nchw", "nhwc")),
-    ("gemm", ("gemm", "gemv", "cutlass")),
-    ("copy / layout", ("copy", "cat", "transpose", "index", "gather")),
-]
 
 
 # ---------------------------------------------------------------------------
@@ -1914,7 +1788,7 @@ def _record_t_real():
     return seen, lambda: setattr(step, "diff_speed_gather", gather)
 
 
-def aug_plus_path(exp: str, profile: bool = False) -> dict:
+def aug_plus_path(exp: str) -> dict:
     """Phase 12: 3 bf16 train steps of the S3D-G pretrain with aug_plus,
     diff_speed [4, 2], packed frames and Adam; both speeds drawn, each
     step at T_real = 64 // speed; K1 26, K2 13 a step, all bf16; K3 once
@@ -1925,24 +1799,16 @@ def aug_plus_path(exp: str, profile: bool = False) -> dict:
     plan = color_plan_line((MAIN_BATCH, P12_PACKED, 224, 224, 3), False)
     argv = _main_argv(exp, fields=P12_FIELDS)
     torch.cuda.reset_peak_memory_stats()
-    _reset_counters()
+    before = _counters()
     t_real, restore = _record_t_real()
     t0 = time.perf_counter()
     try:
-        if profile:
-            from torch.profiler import ProfilerActivity
-            acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-            with torch.profiler.profile(activities=acts,
-                                        record_shapes=True) as prof:
-                engine = pretrain.main(argv)
-                torch.cuda.synchronize()
-        else:
-            engine = pretrain.main(argv)
+        engine = pretrain.main(argv)
         torch.cuda.synchronize()
     finally:
         restore()
     wall = time.perf_counter() - t0
-    counts, by_dtype, plain = _read_counters()
+    counts, by_dtype, plain, *_ = _moved(before)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     loss = engine.meters["loss"].avg
     steps, speeds = engine.step_times, engine.speeds
@@ -1986,8 +1852,6 @@ def aug_plus_path(exp: str, profile: bool = False) -> dict:
     require(not any(plain.values()),
             f"plain versions ran on CUDA tensors: {plain}")
     require(os.path.exists(ckpt), "phase 12: no checkpoint.pth.tar")
-    if profile:
-        report_profile(prof, wall)
     return {"launches": counts, "steps_ms": steps, "speeds": speeds,
             "peak_gib": peak, "checkpoint": ckpt}
 
@@ -1998,7 +1862,7 @@ def aug_plus_validate_path(exp: str, ckpt: str) -> dict:
     import torch
     from rspnet_tpu_torch import pretrain
 
-    _reset_counters()
+    before = _counters()
     t_real, restore = _record_t_real()
     t0 = time.perf_counter()
     try:
@@ -2009,7 +1873,7 @@ def aug_plus_validate_path(exp: str, ckpt: str) -> dict:
     finally:
         restore()
     wall = time.perf_counter() - t0
-    counts, by_dtype, plain = _read_counters()
+    counts, by_dtype, plain, *_ = _moved(before)
     metrics = engine.validation
     print(f"aug_plus multi-speed validate: wall {wall:.1f} s, speeds "
           f"{engine.speeds}, T_real {t_real}, metrics "
@@ -2254,7 +2118,7 @@ def multirank_worker(out_dir: str) -> int:
     reduces = collectives.all_reduces
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _reset_counters()
+    before = _counters()
     reduces.update(calls=0, bytes=0)
     steps, digests = [], []
     for i in range(3):
@@ -2280,7 +2144,7 @@ def multirank_worker(out_dir: str) -> int:
         require(math.isfinite(loss), f"phase 13 rank {rank} loss {loss}")
         digests.append(_p13_digest(state))
         del clips, aug
-    counts, by_dtype, plain = _read_counters()
+    counts, by_dtype, plain, *_ = _moved(before)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     every = [None] * P13_RANKS
     dist.all_gather_object(every, digests)
@@ -2356,10 +2220,9 @@ def multirank_path() -> dict:
     return {"ranks": ranks}
 
 
-def _p13_timed_steps(q, k, bn_group, profile: bool = False) -> dict:
+def _p13_timed_steps(q, k, bn_group) -> dict:
     """3 bf16 steps of one process at the per-rank batch, the BNs' moments
-    over ``bn_group`` (None: cuDNN's BN): step ms and peak GiB; with
-    ``profile`` a 4th step traced (its device time by kernel group)."""
+    over ``bn_group`` (None: cuDNN's BN): step ms and peak GiB."""
     import torch
     from rspnet_tpu_torch.models.common import set_bn_process_group
     from rspnet_tpu_torch.moco import train_step
@@ -2380,24 +2243,12 @@ def _p13_timed_steps(q, k, bn_group, profile: bool = False) -> dict:
         require(math.isfinite(float(loss)),
                 f"phase 13 (c) loss {float(loss)} is not finite")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    if profile:
-        from torch.profiler import ProfilerActivity
-        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts,
-                                    record_shapes=True) as prof:
-            t0 = time.perf_counter()
-            train_step(state, q, k, mcfg, generator=gen)
-            torch.cuda.synchronize()
-        print(f"profile of one step, BN moments over "
-              f"{'the group' if bn_group is not None else 'cuDNN'}:",
-              flush=True)
-        report_profile(prof, time.perf_counter() - t0)
     del state
     torch.cuda.empty_cache()
     return {"steps_ms": steps, "peak_gib": peak}
 
 
-def nccl_world1_path(profile: bool = False) -> dict:
+def nccl_world1_path() -> dict:
     """Phase 13 (c): one NCCL group of one rank; one bf16 step of the 1-D
     layout through it (every collective on the card) equals the step with
     no group bit for bit (cuDNN's deterministic algorithms in both). Then
@@ -2415,7 +2266,7 @@ def nccl_world1_path(profile: bool = False) -> dict:
     q = torch.randn(shape, generator=g, device="cuda")
     k = torch.randn(shape, generator=g, device="cuda")
     perm = torch.randperm(P13_BATCH, generator=g, device="cuda")
-    alone = _p13_timed_steps(q, k, None, profile)
+    alone = _p13_timed_steps(q, k, None)
     deterministic = torch.backends.cudnn.deterministic
     dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
                             f"{free_port()}", world_size=1, rank=0)
@@ -2432,7 +2283,7 @@ def nccl_world1_path(profile: bool = False) -> dict:
             torch.cuda.empty_cache()
         torch.backends.cudnn.deterministic = deterministic
         backend = dist.get_backend()
-        synced = _p13_timed_steps(q, k, dist.group.WORLD, profile)
+        synced = _p13_timed_steps(q, k, dist.group.WORLD)
     finally:
         dist.destroy_process_group()
         torch.backends.cudnn.deterministic = deterministic
@@ -2455,17 +2306,6 @@ def nccl_world1_path(profile: bool = False) -> dict:
 # phase 14: the device-resident dataset cache and the native decoder
 # ---------------------------------------------------------------------------
 
-def _host_copies() -> dict:
-    from rspnet_tpu_torch.framework import tracing
-    return {"calls": tracing.counter("loader.h2d_calls"),
-            "bytes": tracing.counter("loader.h2d_bytes")}
-
-
-def _copies_since(before: dict) -> dict:
-    now = _host_copies()
-    return {k: now[k] - before[k] for k in now}
-
-
 def cached_pretrain_path(exp: str, uncached: dict) -> dict:
     """Phase 14 (a): phase 4's run with ``cache_device: true``: the 256
     synthetic samples cached on the card at epoch 0, 3 bf16 steps served
@@ -2477,16 +2317,14 @@ def cached_pretrain_path(exp: str, uncached: dict) -> dict:
 
     argv = _main_argv(exp, fields="cache_device: true")
     torch.cuda.reset_peak_memory_stats()
-    _reset_counters()
-    before = _host_copies()
+    before = _counters()
     t0 = time.perf_counter()
     engine = pretrain.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts, by_dtype, plain = _read_counters()
     # the build copies the cache itself (not through clip_to_device): any
     # copy counted here is a step's
-    copies = _copies_since(before)
+    counts, by_dtype, plain, _, copies = _moved(before)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     loader = engine.train_loader
     require(isinstance(loader, DeviceCachedLoader),
@@ -2569,13 +2407,11 @@ def cached_finetune_path(exp: str, pretrained: str, uncached: dict) -> dict:
            'val_num_samples: 4}, device_geometry: true, bn_recalibrate: 1, '
            'cache_device: true}')
     torch.cuda.reset_peak_memory_stats()
-    _reset_counters()
-    before = _host_copies()
+    before = _counters()
     engine, final = finetune.main(_finetune_argv(exp, "--mc", pretrained,
                                                  ext=ext))
     torch.cuda.synchronize()
-    counts, by_dtype, plain = _read_counters()
-    copies = _copies_since(before)
+    counts, by_dtype, plain, _, copies = _moved(before)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     steps = engine.step_times
     cached = [isinstance(ld, DeviceCachedLoader)
@@ -2612,14 +2448,12 @@ def cached_retrieval_path(exp: str, pretrained: str, uncached: dict) -> dict:
            'val_num_samples: %d}, device_geometry: true, cache_device: '
            'true}' % (RET_CLIPS, RET_CLIPS))
     torch.cuda.reset_peak_memory_stats()
-    _reset_counters()
-    before = _host_copies()
+    before = _counters()
     engine, results = retrieval.main(
         ["-c", "config/retrieval/ucf101_resnet18.jsonnet", "-e", exp, "-x",
          ext, "-d", "--seed", "0", "--device", "cuda", "--mc", pretrained])
     torch.cuda.synchronize()
-    counts, by_dtype, plain = _read_counters()
-    copies = _copies_since(before)
+    counts, by_dtype, plain, _, copies = _moved(before)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     run_dir = engine.args.run_dir
     same = {n: bool(np.array_equal(np.load(run_dir / n),
@@ -2656,14 +2490,12 @@ def cached_visualization_path(exp: str, pretrained: str,
 
     ext = ('{dataset+: {name: "synthetic", num_samples: 16}, batch_size: '
            '%d, device_geometry: true, cache_device: true}' % VIS_BATCH)
-    _reset_counters()
-    before = _host_copies()
+    before = _counters()
     engine = visualization.main(
         ["-c", "config/pretrain/s3dg.jsonnet", "-e", exp, "-x", ext, "-d",
          "--seed", "0", "--device", "cuda", "--mc", pretrained])
     torch.cuda.synchronize()
-    counts, by_dtype, plain = _read_counters()
-    copies = _copies_since(before)
+    counts, by_dtype, plain, _, copies = _moved(before)
     pngs = sorted((engine.args.run_dir / "cam").iterdir())
     print(f"cached visualization: {len(pngs)} PNGs, launches {counts} "
           f"(phase 9: {uncached['launches']}), K1/K2 launches by dtype "
@@ -2743,60 +2575,8 @@ def native_decoder_check(exp: str) -> dict:
     return {"built": True, "bit_equal": same, "opencv_max_abs": diff}
 
 
-def report_profile(prof, wall_s: float) -> None:
-    """Device time of the main-path run by kernel group and the top
-    kernels (all 3 steps, the first one's warm-up included)."""
-    def dev_us(evt):
-        # the attribute was renamed from *_cuda_* in recent torch releases
-        for attr in ("self_device_time_total", "self_cuda_time_total"):
-            if hasattr(evt, attr):
-                return float(getattr(evt, attr))
-        return 0.0
-
-    kernels = [e for e in prof.key_averages()
-               if getattr(e, "device_type", None) is not None
-               and "CUDA" in str(e.device_type) and dev_us(e) > 0]
-    total = sum(dev_us(e) for e in kernels) / 1e3
-    groups = {}
-    for e in kernels:
-        low = e.key.lower()
-        name = next((g for g, keys in _KERNEL_GROUPS
-                     if any(k in low for k in keys)), "other")
-        groups[name] = groups.get(name, 0.0) + dev_us(e) / 1e3
-    print(f"profile: device kernel time {total:.1f} ms over a {wall_s:.1f} s"
-          f" run (busy share {total / 1e3 / wall_s:.3f})", flush=True)
-    for name, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"profile group {name:20s} {ms:10.1f} ms  "
-              f"{ms / max(total, 1e-9):.3f}", flush=True)
-    # K1 is one launch a call (pool_fwd_tile, or pool_fwd off S3D-G's
-    # geometries); K2 two: pool_route and pool_gather
-    for e in kernels:
-        if any(k in e.key for k in _KERNEL_GROUPS[0][1]):
-            print(f"profile pool kernel {dev_us(e) / 1e3:9.1f} ms "
-                  f"x{e.count:<5d} {e.key[:110]}", flush=True)
-    top = sorted(kernels, key=lambda e: -dev_us(e))[:12]
-    for e in top:
-        print(f"profile kernel {dev_us(e) / 1e3:9.1f} ms x{e.count:<5d} "
-              f"{e.key[:110]}", flush=True)
-    # which layers the convolution time belongs to: the costliest conv ops
-    # by input shapes (device time of the op and the kernels it launched)
-    convs = [e for e in prof.key_averages(group_by_input_shape=True)
-             if e.key in ("aten::convolution_backward",
-                          "aten::cudnn_convolution")]
-    total_us = lambda e: float(getattr(  # noqa: E731
-        e, "device_time_total", getattr(e, "cuda_time_total", 0.0)))
-    for e in sorted(convs, key=lambda e: -total_us(e))[:8]:
-        print(f"profile conv {total_us(e) / 1e3:9.1f} ms x{e.count:<4d} "
-              f"{e.key} {str(e.input_shapes)[:150]}", flush=True)
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--profile", action="store_true",
-                    help="trace the pretrain and finetune paths (and a "
-                         "step of phase 13 (c) each way) with "
-                         "torch.profiler and print their device time by "
-                         "kernel group")
     ap.add_argument("--multirank", metavar="OUT_DIR",
                     help=argparse.SUPPRESS)   # one rank of phase 13
     args = ap.parse_args(argv)
@@ -2926,22 +2706,20 @@ def main(argv=None) -> int:
     time_stems(dev)                                               # phase 15
 
     with tempfile.TemporaryDirectory() as exp:
-        trained = main_path(MAIN_BATCH, os.path.join(exp, "train"),  # 4
-                            args.profile)
+        trained = main_path(MAIN_BATCH, os.path.join(exp, "train"))  # 4
         torch.cuda.empty_cache()
         validate_path(os.path.join(exp, "validate"),                 # 5
                       trained["checkpoint"])
         torch.cuda.empty_cache()
         finetuned = finetune_path(os.path.join(exp, "finetune"),      # 6
-                                  trained["checkpoint"], args.profile)
+                                  trained["checkpoint"])
         torch.cuda.empty_cache()
         finetune_validate_path(os.path.join(exp, "finetune_validate"),
                                finetuned["checkpoint"])
         torch.cuda.empty_cache()
         paths, zoo_ckpts, retrieved = {}, {}, {}
         for arch in ZOO_POOL_SITES:                                   # 7
-            leg = zoo_pretrain_path(arch, os.path.join(exp, arch),
-                                    args.profile)
+            leg = zoo_pretrain_path(arch, os.path.join(exp, arch))
             paths[f"{arch}_pretrain"] = leg["launches"]
             zoo_ckpts[arch] = leg["checkpoint"]
             torch.cuda.empty_cache()
@@ -2958,8 +2736,8 @@ def main(argv=None) -> int:
         for leg, (config, b, frames, calls) in P10_PRETRAIN.items():  # 10
             gc.collect()    # each leg's peak memory is its own
             legs[leg] = zoo_pretrain_path(
-                leg, os.path.join(exp, leg), args.profile, config=config,
-                batch=b, frames=frames, pool_calls=calls)
+                leg, os.path.join(exp, leg), config=config, batch=b,
+                frames=frames, pool_calls=calls)
             paths[f"{leg}_pretrain"] = legs[leg]["launches"]
             torch.cuda.empty_cache()
         for model_type in ("multitask", "1stream"):
@@ -2969,12 +2747,10 @@ def main(argv=None) -> int:
                 legs["r2plus1d"]["checkpoint"], model_type)
             paths[f"r2plus1d_finetune_{model_type}"] = ft["launches"]
             torch.cuda.empty_cache()
-        if args.profile:
-            profile_odd_convs(dev)
         for leg, (fields, calls) in P11_PRETRAIN.items():              # 11
             gc.collect()
             legs[leg] = zoo_pretrain_path(
-                leg, os.path.join(exp, leg), args.profile,
+                leg, os.path.join(exp, leg),
                 config="config/pretrain/moco-train-base.jsonnet",
                 batch=P11_BATCH, pool_calls=calls, fields=fields)
             paths[f"{leg}_pretrain"] = legs[leg]["launches"]
@@ -2983,11 +2759,10 @@ def main(argv=None) -> int:
         paths["r3d18_finetune"] = finetune_leg(
             "r3d18", os.path.join(exp, "r3d18_ft"), None, "multitask",
             config=R3D18_FT_CONFIG, batch=R3D18_FT_BATCH,
-            val_clips=R3D18_FT_VAL, mixins=("add.r18k400",),
-            profile=args.profile)["launches"]
+            val_clips=R3D18_FT_VAL, mixins=("add.r18k400",))["launches"]
         torch.cuda.empty_cache()
         gc.collect()                                                  # 12
-        leg12 = aug_plus_path(os.path.join(exp, "aug_plus"), args.profile)
+        leg12 = aug_plus_path(os.path.join(exp, "aug_plus"))
         paths["s3dg_aug_plus_multispeed"] = leg12["launches"]
         torch.cuda.empty_cache()
         paths["s3dg_aug_plus_validate"] = aug_plus_validate_path(
@@ -3016,7 +2791,7 @@ def main(argv=None) -> int:
     gc.collect()                                                      # 13
     torch.cuda.empty_cache()
     multirank = multirank_path()
-    nccl_world1_path(args.profile)
+    nccl_world1_path()
     torch.cuda.empty_cache()
     launches, launches_ft = trained["launches"], finetuned["launches"]
     print(f"blur: {json.dumps(blur)}", flush=True)

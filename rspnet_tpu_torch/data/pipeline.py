@@ -26,7 +26,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..framework import tracing
-from ..ops.augment import _center_max_box, _sample_crop_box
+from ..ops.augment import center_max_box, sample_crop_box
 from . import transforms_temporal as T
 from .video_reader import open_video
 
@@ -149,9 +149,9 @@ def _load_one(catalog, cfg: "PipelineConfig", index: int,
         # device_geometry path must not require it
         h, w = clip.shape[1:3]
         if c.train:
-            i, j, bh, bw = _sample_crop_box(rng, h, w, c.crop_area)
+            i, j, bh, bw = sample_crop_box(rng, h, w, c.crop_area)
         else:
-            i, j, bh, bw = _center_max_box(h, w, 1.0)
+            i, j, bh, bw = center_max_box(h, w, 1.0)
         cropped = clip[:, i:i + bh, j:j + bw]
         out = np.empty((cropped.shape[0], S, S, 3), np.uint8)
         for t in range(cropped.shape[0]):

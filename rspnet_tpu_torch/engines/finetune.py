@@ -13,10 +13,10 @@ Validation: the centre crop and normalize (ops.augment.eval_preprocess,
 plain torch) and the eval step (K1 only); multi-crop clips arrive
 time-concatenated and the step averages the logits over crops.
 
-Compute dtype from the device, as in engines/pretrain.py: bf16 on the
-card (the JAX engine's choice on its accelerator, finetune.py:65-67), f32
-on the CPU. Parameters, BN statistics, the optimizer state and the
-checkpoints stay f32.
+Compute dtype from the device (``framework/environment.py:
+resolve_runtime``): bf16 on the card (the JAX engine's choice on its
+accelerator, finetune.py:65-67), f32 on the CPU. Parameters, BN
+statistics, the optimizer state and the checkpoints stay f32.
 
 Checkpoints: ``epoch, arch, model {params, batch_stats}, best_acc1,
 optimizer, scheduler``, the JAX engine's layout (finetune.py:373-384)
@@ -55,6 +55,7 @@ from ..data.device_cache import clip_to_device
 from ..data.pipeline import build_loader, prefetch_iterator
 from ..framework import CheckpointManager, MeterGroup, MetricSpool, load_state
 from ..framework.checkpoint import load_optimizer_state
+from ..framework.environment import resolve_runtime
 from ..framework.logging import summary_writer
 from ..framework.lr_schedule import (build_optimizer, build_scheduler,
                                      set_opt_lr)
@@ -62,12 +63,11 @@ from ..models import get_model_class
 from ..models.common import set_bn_process_group
 from ..models.convert import load_variables, state_dict_to_variables
 from ..moco import MultiTaskWrapper
-from ..ops.augment import (augment_batch, center_crop_params, eval_preprocess,
-                           sample_train_params)
+from ..ops.augment import augment_batch, eval_preprocess
 from ..parallel import barrier, mesh_for_args
 from . import classifier
+from .geometry import clip_geometry
 from .normalization import dataset_normalization
-from .pretrain import resolve_device
 from .transfer import load_pretrained_encoder, merge_encoder_into
 
 logger = logging.getLogger(__name__)
@@ -111,14 +111,8 @@ class FinetuneEngine:
         self.debug = bool(getattr(args, "debug", False))
         self.final_validate = final_validate
         _unsupported(cfg, args)
-        self.device = resolve_device(getattr(args, "device", "cuda"))
-        self.dtype = torch.bfloat16 if self.device.type == "cuda" else None
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
-            False
-        logger.info("Device %s; compute dtype %s", self.device,
-                    self.dtype or torch.float32)
+        self.device, self.dtype = resolve_runtime(
+            getattr(args, "device", "cuda"))
 
         # the 1-D data mesh (one process: no group, no collective)
         self.mesh = mesh_for_args(args)
@@ -201,37 +195,26 @@ class FinetuneEngine:
         self.train_meters = None
         self.validation = {}
 
-    # -- device preprocessing ---------------------------------------------
-    # Device-geometry loaders ship decode-resolution clips and the crop box
-    # is applied here; host-geometry clips arrive cropped (identity boxes).
+    # -- device preprocessing (``engines/geometry.py``) -------------------
     def _train_augment(self, clip_u8) -> torch.Tensor:
         B, _, H, W, _ = clip_u8.shape
-        dev_geom = getattr(self.train_loader.cfg, "device_geometry", False)
-        p = sample_train_params(
-            self.rng, B, [(H, W)],
-            crop_area=self.train_loader.cfg.crop_area if dev_geom
-            else (1.0, 1.0),
-            h_flip=self.aug["h_flip"], gray_p=self.aug["gray_p"],
-            jitter=self.aug["jitter"])
-        if not dev_geom:
-            p.boxes[:] = [0, 0, H, W]
+        geom = clip_geometry(self.train_loader.cfg, (B, H, W), self.size)
+        p = geom.train_params(self.rng, **self.aug)
         mean, std = self.normalize
         return augment_batch(
             clip_to_device(clip_u8, self.device), p,
             size=(self.size, self.size), mean=mean, std=std,
             gray_before_jitter=True, use_blur=False,
-            identity_geometry=not dev_geom and (H, W) == (self.size,
-                                                          self.size))
+            identity_geometry=geom.identity)
 
     def _eval_preprocess(self, clip_u8) -> torch.Tensor:
         B, _, H, W, _ = clip_u8.shape
-        p = center_crop_params(B, [(H, W)])
-        if not getattr(self.validate_loader.cfg, "device_geometry", False):
-            p.boxes[:] = [0, 0, H, W]
+        boxes = clip_geometry(self.validate_loader.cfg, (B, H, W),
+                              self.size).eval_boxes()
         mean, std = self.normalize
-        return eval_preprocess(clip_to_device(clip_u8, self.device),
-                               p.boxes, size=(self.size, self.size),
-                               mean=mean, std=std)
+        return eval_preprocess(clip_to_device(clip_u8, self.device), boxes,
+                               size=(self.size, self.size), mean=mean,
+                               std=std)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":

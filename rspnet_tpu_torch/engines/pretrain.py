@@ -26,12 +26,10 @@ in the JAX engine's layout (``save_checkpoint``), so the JAX package's
 ``load_pretrained_encoder`` and ``load_checkpoint(model_only=True)`` read
 it, and this engine reads the JAX engine's files.
 
-Compute dtype, chosen from the device as the JAX engine chooses it from its
-platform (rspnet_tpu/engines/pretrain.py:69-71): bf16 on the card, f32 on
-the CPU. Parameters, BN statistics, the optimizer state, the EMA, the queue
-and the checkpoints stay f32; K3's output is f32 and the stem conv casts
-it. TF32 is off for the f32 matmuls and convolutions that remain, and bf16
-GEMMs reduce in f32; all three flags are set explicitly and logged.
+Compute dtype and matmul precision: ``framework/environment.py:
+resolve_runtime`` (bf16 on the card, f32 on the CPU). Parameters, BN
+statistics, the optimizer state, the EMA, the queue and the checkpoints
+stay f32; K3's output is f32 and the stem conv casts it.
 
 More than one card (``--ws N``, rspnet_tpu/engines/pretrain.py:48-77):
 each rank trains on its rows of the global batch (batch x world, the
@@ -65,7 +63,7 @@ from ..data.device_cache import clip_to_device
 from ..data.pipeline import build_loader, prefetch_iterator
 from ..framework import CheckpointManager, MeterGroup, load_state, tracing
 from ..framework.checkpoint import load_optimizer_state
-from ..framework.environment import scale_learning_rate
+from ..framework.environment import resolve_runtime, scale_learning_rate
 from ..framework.logging import summary_writer
 from ..framework.lr_schedule import build_optimizer, build_scheduler, set_opt_lr
 from ..models.common import set_bn_process_group
@@ -74,24 +72,12 @@ from ..moco import (METRIC_KEYS, build_moco_model, eval_step,
                     gather_queue_2d, init_moco_state, layout_for,
                     shard_queue_2d, speed_branch_config, train_step)
 from ..parallel import barrier, broadcast_, mesh_for_config
-from ..ops.augment import augment_batch, sample_train_params
+from ..ops.augment import augment_batch
 from ..utils.moco import replace_moco_k_in_config
+from .geometry import clip_geometry
 from .normalization import dataset_normalization
 
 logger = logging.getLogger(__name__)
-
-
-def resolve_device(name: str) -> torch.device:
-    """``cuda`` or ``cpu``; ``cuda`` without a card raises (never a quiet
-    fall back to the CPU)."""
-    if name == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("--device cuda: no CUDA device is available "
-                               "(pass --device cpu to run on the CPU)")
-        return torch.device("cuda", torch.cuda.current_device())
-    if name == "cpu":
-        return torch.device("cpu")
-    raise ValueError(f"unknown device {name!r}")
 
 
 class PretrainEngine:
@@ -99,19 +85,8 @@ class PretrainEngine:
         self.args = args
         self.cfg = cfg
         self.debug = bool(getattr(args, "debug", False))
-        self.device = resolve_device(getattr(args, "device", "cuda"))
-        self.dtype = torch.bfloat16 if self.device.type == "cuda" else None
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
-            False
-        logger.info(
-            "Device %s; compute dtype %s; allow_tf32: matmul=%s cudnn=%s; "
-            "bf16 reduced-precision reduction: %s", self.device,
-            self.dtype or torch.float32,
-            torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction)
+        self.device, self.dtype = resolve_runtime(
+            getattr(args, "device", "cuda"))
 
         # the 1-D data mesh, or the 2-D one of a `parallel:` block; one
         # process has no group and takes no collective
@@ -196,35 +171,25 @@ class PretrainEngine:
         self.validation = {}
 
     # -- device-side augmentation of a uint8 batch ----------------------------
-    # Host-geometry loaders pre-crop+resize to the network size (identity
-    # boxes); device-geometry loaders ship decode-res windows and the crop
-    # box is sampled here with the VID crop_area (0.4, 1.0)
-    # (rspnet_tpu/engines/pretrain.py:188-214).
+    # the VID crop_area (0.4, 1.0) on device-geometry clips
+    # (``engines/geometry.py``)
     def _augment_clip(self, clip_u8) -> torch.Tensor:
         with tracing.phase("rsp.augment"):
             B, _, H, W, _ = clip_u8.shape
-            lcfg = self.train_loader.cfg
-            dev_geom = getattr(lcfg, "device_geometry", False)
-            crop_area = lcfg.crop_area if dev_geom else (1.0, 1.0)
+            geom = clip_geometry(self.train_loader.cfg, (B, H, W), self.size)
             if self.aug_plus:
-                p = sample_train_params(
-                    self.rng, B, [(H, W)], crop_area=crop_area, h_flip=0.5,
-                    gray_p=0.2, jitter=(0.4, 0.4, 0.4, 0.1), jitter_p=0.8,
-                    blur_p=0.5)
+                p = geom.train_params(
+                    self.rng, h_flip=0.5, gray_p=0.2,
+                    jitter=(0.4, 0.4, 0.4, 0.1), jitter_p=0.8, blur_p=0.5)
             else:
-                p = sample_train_params(
-                    self.rng, B, [(H, W)], crop_area=crop_area, h_flip=0.5,
-                    gray_p=0.2, jitter=(0.4, 0.4, 0.4, 0.4))
-            if not dev_geom:
-                # crop/resize already happened on the host: identity boxes
-                p.boxes[:] = [0, 0, H, W]
+                p = geom.train_params(self.rng, h_flip=0.5, gray_p=0.2,
+                                      jitter=(0.4, 0.4, 0.4, 0.4))
             mean, std = self.normalize
             batch = clip_to_device(clip_u8, self.device)
             return augment_batch(
                 batch, p, size=(self.size, self.size), mean=mean, std=std,
                 gray_before_jitter=not self.aug_plus, use_blur=self.aug_plus,
-                identity_geometry=(not dev_geom
-                                   and (H, W) == (self.size, self.size)))
+                identity_geometry=geom.identity)
 
     def _step_config(self):
         """The step's MoCo config: with more than one speed, the branch of

@@ -15,12 +15,13 @@ clip is a hit at k if one of its k nearest train clips shares its label.
     -> ``topk_retrieval`` in numpy on the host
 
 With ``device_geometry`` the train split's crop boxes are Inception crops
-drawn from ``np.random.default_rng(seed or 0)`` by ``_sample_crop_box``,
+drawn from ``np.random.default_rng(seed or 0)`` by ``sample_crop_box``,
 clip by clip, as the JAX engine draws them, so one seed gives both packages
 the same boxes; the test split takes the centre max crop.
 
-Compute dtype from the device, as the JAX engine takes it from its
-platform (retrieval.py:45-47): bf16 on the card, f32 on the CPU. In bf16
+Compute dtype from the device (``framework/environment.py:
+resolve_runtime``), as the JAX engine takes it from its platform
+(retrieval.py:45-47): bf16 on the card, f32 on the CPU. In bf16
 the pooled features and their crop mean are rounded to bf16 where
 ``jnp.mean`` rounds them. Deviation (file dtype only): the JAX engine on
 its accelerator saves those bf16 arrays and ranks them in numpy as bf16;
@@ -57,15 +58,16 @@ from ..config import ConfigTree
 from ..data.device_cache import clip_to_device
 from ..data.pipeline import build_loader
 from ..framework import load_state
+from ..framework.environment import resolve_runtime
 from ..models.common import global_avg_pool
 from ..models.convert import load_variables
 from ..moco import MultiTaskWrapper
-from ..ops.augment import _sample_crop_box, center_crop_params, eval_preprocess
+from ..ops.augment import eval_preprocess, sample_crop_box
 from ..parallel import fetch_global, mesh_for_args
 from .classifier import _mean
 from .finetune import _unsupported, build_classifier_model
+from .geometry import clip_geometry
 from .normalization import dataset_normalization
-from .pretrain import resolve_device
 from .transfer import load_pretrained_encoder, merge_encoder_into
 
 logger = logging.getLogger(__name__)
@@ -118,12 +120,8 @@ class RetrievalEngine:
         self.cfg = cfg
         self.debug = bool(getattr(args, "debug", False))
         _unsupported(cfg, args)
-        self.device = resolve_device(getattr(args, "device", "cuda"))
-        self.dtype = torch.bfloat16 if self.device.type == "cuda" else None
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        logger.info("Device %s; compute dtype %s", self.device,
-                    self.dtype or torch.float32)
+        self.device, self.dtype = resolve_runtime(
+            getattr(args, "device", "cuda"))
         # the train split's crop boxes under device geometry
         # (retrieval.py:42-43)
         self._crop_rng = np.random.default_rng(
@@ -170,15 +168,14 @@ class RetrievalEngine:
 
     def _boxes(self, loader, B: int, H: int, W: int) -> np.ndarray:
         """Crop boxes of this rank's B rows (retrieval.py:143-161)."""
-        if not getattr(loader.cfg, "device_geometry", False):
-            return np.array([[0, 0, H, W]] * B, np.float32)
-        if loader.cfg.train:
-            boxes = np.stack([np.asarray(
-                _sample_crop_box(self._crop_rng, H, W, loader.cfg.crop_area),
-                np.float32) for _ in range(B * self.mesh.size)])
-            r = self.mesh.rank
-            return boxes[r * B:(r + 1) * B]
-        return center_crop_params(B, [(H, W)]).boxes
+        geom = clip_geometry(loader.cfg, (B, H, W), self.size)
+        if not (geom.on_device and loader.cfg.train):
+            return geom.eval_boxes()
+        boxes = np.stack([np.asarray(
+            sample_crop_box(self._crop_rng, H, W, geom.crop_area),
+            np.float32) for _ in range(B * self.mesh.size)])
+        r = self.mesh.rank
+        return boxes[r * B:(r + 1) * B]
 
     def extract_features(self, loader, name: str):
         """-> (features [n, feature_dim] f32, labels [n]) of the split's

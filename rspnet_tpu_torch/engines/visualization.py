@@ -44,13 +44,13 @@ from ..config import ConfigTree
 from ..data.device_cache import clip_to_device
 from ..data.pipeline import build_loader
 from ..framework import load_state
+from ..framework.environment import resolve_runtime
 from ..models.convert import load_variables
 from ..moco import build_moco_model, diff_speed_gather
-from ..ops.augment import _center_max_box, eval_preprocess
+from ..ops.augment import center_max_box, eval_preprocess
 from ..utils.image import apply_jet, resize_linear_u8, write_png
 from .finetune import _unsupported
 from .normalization import dataset_normalization
-from .pretrain import resolve_device
 from .transfer import load_pretrained_encoder, merge_encoder_into
 
 logger = logging.getLogger(__name__)
@@ -129,9 +129,9 @@ class VisualizationEngine:
             raise NotImplementedError(
                 "CAM visualization requires linear heads (reference "
                 "_get_fc_weight indexes the linear layer)")
-        self.device = resolve_device(getattr(args, "device", "cuda"))
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        # the model stays f32 (the module's docstring)
+        self.device, _ = resolve_runtime(getattr(args, "device", "cuda"))
+        logger.info("CAM visualization computes in float32")
         # the VID pipeline's dataset.mean/std, identity under --debug
         self.normalize = dataset_normalization(cfg, vid_debug=self.debug)
         self._mean_np = np.array(self.normalize[0], np.float32)
@@ -210,7 +210,7 @@ class VisualizationEngine:
         B = qs.shape[0]
         # the centre max box: the geometry the encoder saw in training
         # (identity when the worker already resized to S x S)
-        i0, j0, bh, bw = _center_max_box(qs.shape[2], qs.shape[3], 1.0)
+        i0, j0, bh, bw = center_max_box(qs.shape[2], qs.shape[3], 1.0)
         boxes = np.array([[i0, j0, bh, bw]] * B, np.float32)
         mean, std = self.normalize
         clip_q, clip_k = (eval_preprocess(

@@ -33,7 +33,17 @@
   and channel-padded RGB stem; 2 a pretrain step in bf16 on a card),
   ``backbone.factored_conv_calls`` (``models/r2plus1d.py``: forwards of
   ``SpatioTemporalConv``, 12 a forward of R(2+1)D-10 and so 24 a
-  pretrain step).
+  pretrain step); the hand kernels' launches, counted after each
+  successful launch: ``kernels.max_pool3d_fwd.<dtype>`` (K1, one launch
+  a call), ``kernels.max_pool3d_bwd.<dtype>`` (K2, a call of two
+  launches: route, then gather), ``<dtype>`` ``float32`` or ``bfloat16``
+  (26 K1 and 13 K2 a pretrain step of S3D-G in bf16 on a card), and
+  ``kernels.color_augment.<dtype>`` (K3, its input's ``uint8`` or
+  ``float32``; 2 a pretrain step); and ``kernels.<name>.plain_on_cuda``,
+  calls of a kernel's plain version on CUDA tensors (``ops/``: the
+  card's paths make none).
+- ``device_kernels(fn)``: the kernels one call of ``fn`` launches on the
+  card and their device times, from a profiler session of its own.
 
 The tracer is on exactly while a ``torch.profiler`` session is active in
 the process (torch's process-wide flag; ``_profiler_enabled()`` is the
@@ -308,6 +318,22 @@ def summarize(spans: List[Span]) -> List[Tuple[str, int, float,
         if isinstance(s, (Phase, DeviceSpan)):
             row[3] = (row[3] or 0.0) + s.device_ms()
     return [tuple(r) for r in rows.values()]
+
+
+def device_kernels(fn) -> List[Tuple[float, str]]:
+    """(device ms, name) of the kernels one call of ``fn`` launches on the
+    card, the longest first."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = []
+    for e in prof.key_averages():
+        us = float(getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0.0)))
+        if us > 0:
+            out.append((us / 1e3, e.key))
+    return sorted(out, reverse=True)
 
 
 # the process's tracer: a profiler session is the process's too

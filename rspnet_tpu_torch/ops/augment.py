@@ -20,8 +20,9 @@ import torch
 from . import color
 from .color_augment import color_augment
 
-__all__ = ["AugmentParams", "sample_train_params", "center_crop_params",
-           "crop_resize", "augment_batch", "eval_preprocess"]
+__all__ = ["AugmentParams", "sample_crop_box", "center_max_box",
+           "sample_train_params", "center_crop_params", "crop_resize",
+           "augment_batch", "eval_preprocess"]
 
 
 # ---------------------------------------------------------------------------
@@ -48,10 +49,10 @@ class AugmentParams:
     blur: np.ndarray
 
 
-def _sample_crop_box(rng: np.random.Generator, height: int, width: int,
-                     scale: Tuple[float, float],
-                     ratio: Tuple[float, float] = (3.0 / 4.0, 4.0 / 3.0)
-                     ) -> Tuple[int, int, int, int]:
+def sample_crop_box(rng: np.random.Generator, height: int, width: int,
+                    scale: Tuple[float, float],
+                    ratio: Tuple[float, float] = (3.0 / 4.0, 4.0 / 3.0)
+                    ) -> Tuple[int, int, int, int]:
     """Inception-style area/aspect crop (reference: transforms_spatial.py:53-83)."""
     area = height * width
     log_ratio = (math.log(ratio[0]), math.log(ratio[1]))
@@ -77,8 +78,8 @@ def _sample_crop_box(rng: np.random.Generator, height: int, width: int,
     return (height - h) // 2, (width - w) // 2, h, w
 
 
-def _center_max_box(height: int, width: int, ratio: float = 1.0
-                    ) -> Tuple[int, int, int, int]:
+def center_max_box(height: int, width: int, ratio: float = 1.0
+                   ) -> Tuple[int, int, int, int]:
     """Largest centered crop of the given aspect
     (reference: transforms_spatial.py:86-100)."""
     if width / height > ratio:
@@ -123,7 +124,7 @@ def sample_train_params(
     else:
         for b in range(batch_size):
             h, w = source_hw[b] if len(source_hw) > 1 else source_hw[0]
-            boxes[b] = _sample_crop_box(rng, h, w, crop_area)
+            boxes[b] = sample_crop_box(rng, h, w, crop_area)
 
     flip = rng.random(batch_size) < h_flip
     gray = rng.random(batch_size) < gray_p
@@ -163,7 +164,7 @@ def center_crop_params(batch_size: int,
     boxes = np.zeros((batch_size, 4), dtype=np.float32)
     for b in range(batch_size):
         h, w = source_hw[b] if len(source_hw) > 1 else source_hw[0]
-        boxes[b] = _center_max_box(h, w, ratio)
+        boxes[b] = center_max_box(h, w, ratio)
     factors = np.ones((batch_size, 4), dtype=np.float32)
     factors[:, 3] = 0.0
     return AugmentParams(

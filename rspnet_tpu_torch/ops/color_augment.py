@@ -28,7 +28,8 @@ every call to the generic instance, and ``k3_timeline`` stamps the resident
 instance's phases. See ``csrc/color_augment.cu``.
 
 A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel or
-raises (a refused cooperative launch raises too).
+raises (a refused cooperative launch raises too). Launches count in
+``framework/tracing.py``'s ``kernels.`` counters.
 """
 from __future__ import annotations
 
@@ -39,10 +40,8 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..framework import tracing
 from . import _build, color
-
-launches = {"color_augment": 0}
-plain_cuda_calls = {"color_augment": 0}
 
 # rsp_color_augment_plan's fields, in order
 PLAN_KEYS = ("resident", "ctas", "ctas_per_sm", "rows_per_cta",
@@ -80,7 +79,7 @@ def color_augment_plain(x: torch.Tensor, order, factors, gray, flip, *,
     gray, flip = _host(gray, bool), _host(flip, bool)
     _check_args(x, order, factors, gray, flip, mean, std)
     if x.is_cuda:
-        plain_cuda_calls["color_augment"] += 1
+        tracing.add("kernels.color_augment.plain_on_cuda")
     out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     for b in range(x.shape[0]):
         c = x[b].float() / 255.0 if x.dtype == torch.uint8 else x[b]
@@ -140,7 +139,8 @@ def color_augment(x: torch.Tensor, order, factors, gray, flip, *,
         (ctypes.c_int * len(PLAN_KEYS))(*plan.values()),
         torch.cuda.current_stream().cuda_stream)
     _build.check(err, "rsp_color_augment")
-    launches["color_augment"] += 1
+    tracing.add("kernels.color_augment.uint8" if in_u8
+                else "kernels.color_augment.float32")
     return out
 
 

@@ -68,7 +68,7 @@ one deviation and one rounding difference:
   C = 6 and 16 the largest difference was 2.0 ulp_bf16(A).
 
 A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel or
-raises.
+raises. Launches count in ``framework/tracing.py``'s ``kernels.`` counters.
 """
 from __future__ import annotations
 
@@ -78,24 +78,12 @@ from typing import Sequence, Tuple
 
 import torch
 
+from ..framework import tracing
 from . import _build
 
 Triple = Tuple[int, int, int]
 
-# Wrapper calls that launched a kernel: K1 counts forward calls (one launch
-# each), K2 backward calls (two launches each: route, then gather).
-launches = {"max_pool3d_fwd": 0, "max_pool3d_bwd": 0}
-# the same calls by dtype, keyed "<name>.<dtype>" (on the card the main path
-# computes in bf16)
-launches_by_dtype = {f"{name}.{dtype}": 0 for name in launches
-                     for dtype in ("float32", "bfloat16")}
-# plain-version calls on CUDA tensors (the main path must make none)
-plain_cuda_calls = {"max_pool3d_fwd": 0, "max_pool3d_bwd": 0}
-
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# launches_by_dtype's key of each (wrapper, dtype)
-_DTYPE_KEYS = {(name, dtype): f"{name}.{str(dtype).split('.')[-1]}"
-               for name in launches for dtype in _DTYPES}
 
 
 def _triple(v) -> Triple:
@@ -189,7 +177,7 @@ def max_pool3d_fwd_plain(x: torch.Tensor, k, s, p) -> torch.Tensor:
     bit to any other evaluation order)."""
     k, s, p = _triple(k), _triple(s), _triple(p)
     if x.is_cuda:
-        plain_cuda_calls["max_pool3d_fwd"] += 1
+        tracing.add("kernels.max_pool3d_fwd.plain_on_cuda")
     return _stages_plain(x, k, s, p)[-1]
 
 
@@ -198,7 +186,7 @@ def max_pool3d_bwd_plain(x: torch.Tensor, g: torch.Tensor, k, s,
     """dx of the pool, first-match routing composed W -> H -> T."""
     k, s, p = _triple(k), _triple(s), _triple(p)
     if x.is_cuda:
-        plain_cuda_calls["max_pool3d_bwd"] += 1
+        tracing.add("kernels.max_pool3d_bwd.plain_on_cuda")
     stages = _stages_plain(x, k, s, p)
     for axis in (3, 2, 1):
         g = _pool_axis_bwd_plain(stages[axis - 1], stages[axis], g, axis,
@@ -231,11 +219,6 @@ def _stream(t: torch.Tensor) -> int:
 
 def _ptr(t: torch.Tensor) -> int:
     return t.data_ptr()
-
-
-def _count(name: str, dtype: torch.dtype) -> None:
-    launches[name] += 1
-    launches_by_dtype[_DTYPE_KEYS[name, dtype]] += 1
 
 
 def _out_shape(shape, k, s, p):
@@ -280,7 +263,8 @@ def max_pool3d_fwd(x: torch.Tensor, k, s, p, *,
         x.data_ptr(), out.data_ptr(), _DTYPES[x.dtype], shape_arr, kspec,
         _stream(x))
     _build.check(err, "rsp_maxpool3d_fwd")
-    _count("max_pool3d_fwd", x.dtype)
+    tracing.add("kernels.max_pool3d_fwd."
+                + str(x.dtype).removeprefix("torch."))
     return out
 
 
@@ -333,7 +317,8 @@ def max_pool3d_bwd(x: torch.Tensor, g: torch.Tensor, k, s, p, *,
                                 _ptr(buf) + n * esize, _DTYPES[x.dtype],
                                 shape_arr, kspec, _stream(x))
     _build.check(err, "rsp_maxpool3d_bwd")
-    _count("max_pool3d_bwd", x.dtype)
+    tracing.add("kernels.max_pool3d_bwd."
+                + str(x.dtype).removeprefix("torch."))
     return dx
 
 

@@ -14,7 +14,7 @@ import torch
 
 from rspnet_tpu_torch import pretrain
 from rspnet_tpu_torch.data.device_cache import DeviceCachedLoader
-from rspnet_tpu_torch.engines.pretrain import resolve_device
+from rspnet_tpu_torch.framework.environment import resolve_device
 from tests.conftest import REPO_ROOT
 from tests.torch_checkpoints import drop_checkpoints  # noqa: F401
 

@@ -14,7 +14,9 @@ of the pretrain hot loop, on the CPU at a tiny S3D-G:
 - the loader's producer thread keeps its own spans, parents and thread;
 - ``loader.h2d_bytes`` counts a host clip's bytes, a cached clip none;
 - a CUDA phase chain shares its boundary events (events stubbed);
-- ``--profile-steps`` writes a Chrome trace holding the step's phases.
+- ``--profile-steps`` writes a Chrome trace holding the step's phases;
+- a K1 launch (its library stubbed) moves its ``kernels.`` counter, and
+  ``--profile-steps`` logs the launches of its steps.
 """
 import json
 import os
@@ -318,3 +320,45 @@ def test_profile_steps_writes_the_trace(tmp_path, monkeypatch):
     # other tests of the process may have moved other counters, which
     # sort before it on the line
     assert re.search(r"counters: (\S+=\d+ )*loader\.h2d_bytes=\d+", log)
+
+
+def test_profile_steps_logs_kernel_launches(tmp_path, monkeypatch):
+    """K1's wrapper with the kernel library stubbed and a CPU tensor
+    presenting itself as a CUDA one: each launch moves
+    ``kernels.max_pool3d_fwd.float32``; one a step shows on the counter
+    line of ``--profile-steps 2``."""
+    from rspnet_tpu_torch import pretrain
+    from rspnet_tpu_torch.engines import pretrain as engines_pretrain
+    from rspnet_tpu_torch.ops import _build
+    from rspnet_tpu_torch.ops import max_pool3d as tmp
+
+    class OnCard(torch.Tensor):
+        @property
+        def is_cuda(self):
+            return True
+
+    class Lib:
+        @staticmethod
+        def rsp_maxpool3d_fwd(*args):
+            return 0
+
+    monkeypatch.setattr(_build, "library", lambda name: Lib)
+    monkeypatch.setattr(tmp, "_stream", lambda t: 0)
+    x = torch.zeros(1, 2, 4, 4, 8).as_subclass(OnCard)
+    name = "kernels.max_pool3d_fwd.float32"
+    before = tracing.counter(name)
+    tmp.max_pool3d_fwd(x, 2, 2, 0)
+    assert tracing.counter(name) == before + 1
+
+    step = engines_pretrain.train_step
+
+    def step_and_launch(*args, **kwargs):
+        tmp.max_pool3d_fwd(x, 2, 2, 0)
+        return step(*args, **kwargs)
+
+    monkeypatch.setattr(engines_pretrain, "train_step", step_and_launch)
+    monkeypatch.chdir(REPO_ROOT)
+    engine = pretrain.main(_argv(tmp_path, "--profile-steps", "2"))
+    log = (engine.args.run_dir / "experiment.log").read_text()
+    assert re.search(r"counters: (\S+=\d+ )*kernels\.max_pool3d_fwd\.float32=2"
+                     r"( |$)", log, re.M)
