@@ -183,6 +183,25 @@ Phases, each printing its own lines:
      the same bf16 values; no packed stem may be slower than its plain
      call. Phases 4, 7, 10 and 11 count 2 packed stem forwards a step (4
      on SlowFast, 0 on C3D), phase 9 (f32) none.
+ 16. the temporal convolutions, after phase 15: each (kt, 1, 1)
+     convolution with kt > 1 of R(2+1)D-10, S3D-G, SlowFast
+     (SLOWFAST_NLN_4x16_R50) and MFNet (none: its temporal kernels are
+     3^3), as a bf16 forward of one clip on the card reaches it, in bf16
+     channels-last memory at the pretrain clip: ``F.conv3d`` beside
+     ``models/common.py:temporal_conv2d`` (a 2-D convolution with a (kt,
+     1) kernel on the free [N, C, T, H*W] view), the forward timed at the
+     fused key pass's batch and the forward, input gradient and weight
+     gradient at the q batch (32 on R(2+1)D, else 64), by the device ms
+     of their kernels, twice in turns (and once by CUDA events), the
+     kernels of each named, the output and both gradients held to the f32
+     convolution of the same bf16 values. No f32 kernel may remain at
+     R(2+1)D's three 56² sites, and no site ``temporal_as_2d`` takes may be
+     slower in the 2-D form, fwd + bwd, by more than the timings' spread
+     (``TEMPORAL_NOISE`` at least). Sites the rule leaves to the 3-D
+     call (more than 128 outputs) are timed in both forms too. Phases 4,
+     7, 10 and 11 count the 2-D forms a step
+     (``backbone.temporal_2d_calls``: 22 on S3D-G, 10 on R(2+1)D, 38 on
+     SlowFast, 0 on C3D, ResNet-18, TSM and MFNet), phase 9 (f32) none.
 Then one JSON line with the kernels, the card line again, and the result
 line ``{"ok": true, "device": {...}}`` last. Any failure exits non-zero
 before the result line. Imports nothing of JAX or of rspnet_tpu.
@@ -422,6 +441,30 @@ STEM_ARCHS = {
     "torchvision-resnet18": ({}, (16, 112, 112)),
 }
 STEM_BATCH = 64
+# phase 16: arch -> (the model keys of its pretrain config, the clip
+# [T, H, W] it sees in pretraining, its q batch); the sites are the built
+# backbone's (kt, 1, 1) convolutions with kt > 1 as a bf16 forward on the
+# card reaches them, timed at the q batch (forward, input and weight
+# gradient) and the fused key pass's (forward). MFNet has none: its
+# temporal kernels are (3, 3, 3)
+TEMPORAL_ARCHS = {
+    "r2plus1d-vcop": ({}, (16, 112, 112), 32),
+    "s3dg": ({}, (16, 224, 224), 64),
+    "slowfast": ({"cfg_file": "config/slowfast-configs/Kinetics/"
+                  "SLOWFAST_NLN_4x16_R50.yaml"}, (16, 112, 112), 64),
+    "mfnet": ({}, (16, 112, 112), 64),
+}
+# the convolutions ``models/common.py:temporal_as_2d`` takes in a forward
+# of each pretrain leg's backbone on the card (a MoCo step runs two: the
+# fused key pass and the query pass)
+TEMPORAL_2D_A_FORWARD = {"s3dg": 11, "r2plus1d": 5, "slowfast": 19,
+                         "mfnet": 0, "c3d": 0, "resnet18": 0, "tsm": 0}
+# the slowest a site's 2-D form may be against its 3-D call, as a share of
+# the 3-D call's fwd + bwd device time, where two timings of one form
+# differ by less (the profiler's kernel times of 10 calls: on the H100 the
+# two turns of a site differed by 0.5% in the median, by 2% at most at 38
+# of 41 sites)
+TEMPORAL_NOISE = 0.02
 
 
 class SmokeError(RuntimeError):
@@ -1229,6 +1272,207 @@ def time_stems(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 16: the temporal convolutions, 3-D against the 2-D view
+# ---------------------------------------------------------------------------
+
+def temporal_sites(dev):
+    """(arch, names, conv, per-clip input [C, T, H, W], q batch, taken) of
+    each (kt, 1, 1) convolution with kt > 1 of the backbones of
+    ``TEMPORAL_ARCHS``, as a bf16 forward of one clip on the card reaches
+    it (the conv with the model's initial weight; ``taken``: whether
+    ``temporal_as_2d`` takes it there). Convolutions of one arch with the
+    same geometry and input shape are one site, under all their names."""
+    import torch
+    from rspnet_tpu_torch.models import common, get_model_class
+
+    rule = common.temporal_as_2d
+    for arch, (keys, (t, h, w), batch) in TEMPORAL_ARCHS.items():
+        model = get_model_class(arch, **keys)(dtype=torch.bfloat16)
+        model = model.to(dev).eval()
+        names = {id(m): n for n, m in model.named_modules()}
+        sites = {}
+
+        def record(conv, x, dt):
+            taken = rule(conv, x, dt)
+            if conv.kernel_size[0] > 1 and conv.kernel_size[1:] == (1, 1):
+                key = (conv.in_channels, conv.out_channels, conv.kernel_size,
+                       conv.stride, conv.padding, conv.groups,
+                       tuple(x.shape[1:]))
+                site = sites.setdefault(key, [[], conv, set()])
+                site[0].append(names[id(conv)])
+                site[2].add(taken)
+            return taken
+
+        common.temporal_as_2d = record
+        try:
+            with torch.no_grad():
+                model(torch.rand((1, t, h, w, 3), device=dev))
+        finally:
+            common.temporal_as_2d = rule
+        for key, (site_names, conv, taken) in sites.items():
+            require(len(taken) == 1, f"{arch} {site_names}: taken {taken}")
+            yield arch, site_names, conv, key[-1], batch, taken.pop()
+        del model
+        torch.cuda.empty_cache()
+
+
+def _device_ms(fn, calls: int = 10):
+    """(device ms a call, [(ms a call, kernel)] longest first) of ``fn``:
+    the kernels of ``calls`` calls in one profiler session, summed, over
+    ``calls`` (no host time between the kernels counted)."""
+    from rspnet_tpu_torch.framework import tracing
+
+    def run():
+        for _ in range(calls):
+            fn()
+    kernels = [(ms / calls, key) for ms, key in tracing.device_kernels(run)]
+    return sum(ms for ms, _ in kernels), kernels
+
+
+def time_temporal(dev) -> dict:
+    """Phase 16: each site of ``temporal_sites`` in bf16 and channels-last
+    memory, as ``F.conv3d`` and as ``models/common.py:temporal_conv2d``
+    (the [N, C, T, H*W] view): the forward at the fused key pass's batch
+    (2 x the q batch, no gradient), and the forward, the input gradient
+    (dgrad) and the weight gradient (wgrad) at the q batch, from a
+    channels-last output gradient as the backward gets it. Each is timed
+    on the card's clock, the device ms of its kernels over 10 calls
+    (``_device_ms``; the small sites' calls take less device time than
+    host time), twice in turns, and once with CUDA events around 20 calls
+    (host time included where it is the longer); its kernels are named.
+    Output and both gradients are held to the f32 ``F.conv3d`` of the
+    same bf16 values (TF32 off), within an ulp of their largest element
+    or the 3-D call's own error. At R(2+1)D's three 56² sites the rule
+    must take the 2-D form and no f32 kernel may remain in it; at every
+    site ``temporal_as_2d`` takes, the 2-D form's device ms (fwd + bwd)
+    may not exceed the 3-D call's by more than the larger of the two
+    turns' spread and ``TEMPORAL_NOISE``. Sites the rule leaves to the
+    3-D call are timed in both forms too: they show why."""
+    import torch
+    import torch.nn.functional as F
+    from rspnet_tpu_torch.models.common import temporal_conv2d
+
+    bf, cl = torch.bfloat16, torch.channels_last_3d
+    phases = ("key_fwd", "q_fwd", "dgrad", "wgrad")
+    out, slower, ffma = {}, [], []
+    for arch, names, conv, shape, batch, taken in temporal_sites(dev):
+        stride, pad, groups = conv.stride, conv.padding, conv.groups
+        name = f"{arch}.{names[0]}" + (f" (+{len(names) - 1})"
+                                       if len(names) > 1 else "")
+        gen = torch.Generator(device=dev).manual_seed(0)
+        x_key = torch.randn((2 * batch, *shape[1:], shape[0]), device=dev,
+                            generator=gen, dtype=bf).permute(0, 4, 1, 2, 3)
+        x = x_key[:batch].clone().requires_grad_()
+        w = conv.weight.detach().to(dev, bf).requires_grad_()
+        forms = {
+            "3d": lambda xx: F.conv3d(xx, w, None, stride, pad,
+                                      groups=groups),
+            "2d": lambda xx: temporal_conv2d(xx, w, stride, pad, groups)}
+        # the yardstick: the f32 convolution of the same bf16 values
+        x32 = x.detach().float().requires_grad_()
+        w32 = w.detach().float().requires_grad_()
+        y32 = F.conv3d(x32, w32, None, stride, pad, groups=groups)
+        g = torch.randn(y32.shape, device=dev, generator=gen).to(bf)
+        g = g.contiguous(memory_format=cl)
+        dx32, dw32 = torch.autograd.grad(y32, (x32, w32), g.float())
+        ref = {"y": y32.detach(), "dx": dx32, "dw": dw32}
+        scale = {k: float(v.abs().max()) for k, v in ref.items()}
+        del x32, w32, y32
+        rows = {}
+        for label, call in forms.items():
+            y = call(x)
+            require(y.is_contiguous(memory_format=cl),
+                    f"temporal {name} {label}: output not channels-last")
+            dx, dw = torch.autograd.grad(y, (x, w), g, retain_graph=True)
+            err = {"y": _max_err(y, ref["y"]), "dx": _max_err(dx, ref["dx"]),
+                   "dw": _max_err(dw, ref["dw"])}
+            del dx, dw
+
+            def key_fwd(call=call):
+                with torch.no_grad():
+                    call(x_key)
+
+            def q_fwd(call=call):
+                call(x)
+
+            def dgrad(y=y):
+                torch.autograd.grad(y, x, g, retain_graph=True)
+
+            def wgrad(y=y):
+                torch.autograd.grad(y, w, g, retain_graph=True)
+
+            fns = dict(zip(phases, (key_fwd, q_fwd, dgrad, wgrad)))
+            rows[label] = {"y": y, "fns": fns, "err": err, "sums": [],
+                           "event_ms": {p: time_calls_ms(fn)
+                                        for p, fn in fns.items()}}
+        for _ in range(2):          # the two forms in turns, twice
+            for r in rows.values():
+                timed = {p: _device_ms(fn) for p, fn in r["fns"].items()}
+                r["ms"] = {p: ms for p, (ms, _) in timed.items()}
+                r["kernels"] = {p: k for p, (_, k) in timed.items()}
+                r["sums"].append(sum(r["ms"].values()))
+        d3, d2 = rows["3d"], rows["2d"]
+        noise = max(max(abs(r["sums"][0] - r["sums"][1]) for r in
+                        rows.values()), TEMPORAL_NOISE * min(d3["sums"]))
+        mean = {k: sum(r["sums"]) / 2 for k, r in rows.items()}
+        ok = mean["2d"] <= mean["3d"] + noise
+        for label, r in rows.items():
+            flag = ("" if label == "3d" else
+                    f"; 2d<=3d+noise {ok} (noise {noise:.3f})"
+                    + ("" if taken else " (not taken: the 3-D call is "
+                       "conv3d's)"))
+            print(f"temporal {name} {label}: [{batch}, {shape[0]}, "
+                  f"{', '.join(map(str, shape[1:]))}] -> "
+                  f"{conv.out_channels} k{conv.kernel_size[0]} "
+                  f"s{stride[0]} p{pad[0]} g{groups}: device ms "
+                  + ", ".join(f"{p} {r['ms'][p]:.3f}" for p in phases)
+                  + f", sums {r['sums'][0]:.3f} / {r['sums'][1]:.3f}; "
+                  "events " + ", ".join(f"{r['event_ms'][p]:.3f}"
+                                        for p in phases)
+                  + "; max err " + ", ".join(
+                      f"{k} {r['err'][k]:.3g} (scale {scale[k]:.3g})"
+                      for k in ("y", "dx", "dw")) + flag, flush=True)
+            for p in ("key_fwd", "dgrad", "wgrad"):
+                print(f"temporal {name} {label} {p}: " + "; ".join(
+                    f"{ms:.3f} ms {key[:90]}"
+                    for ms, key in r["kernels"][p][:3]), flush=True)
+            for k in ("y", "dx", "dw"):
+                require(r["err"][k] <= max(d3["err"][k], scale[k] / 256),
+                        f"temporal {name} {label}: {k} off by "
+                        f"{r['err'][k]}")
+        f32 = {label: any("f32f32_f32f32" in key for p in phases
+                          for _, key in r["kernels"][p])
+               for label, r in rows.items()}
+        if arch == "r2plus1d-vcop" and shape[2] * shape[3] == 56 * 56:
+            require(taken, f"temporal {name}: not taken at 56²")
+            ffma.extend(names if f32["2d"] else [])
+        if taken and not ok:
+            slower.append(name)
+        out[name] = {"taken": taken, "noise_ms": noise, **{
+            label: {"ms": r["ms"], "sums": r["sums"],
+                    "event_ms": r["event_ms"], "err": r["err"],
+                    "f32_kernel": f32[label]}
+            for label, r in rows.items()}}
+        del rows, x_key, x, w, g, ref, forms
+        torch.cuda.empty_cache()
+    f32_sites = {k: [n for n, r in out.items() if r[k]["f32_kernel"]]
+                 for k in ("3d", "2d")}
+    left = [n for n, r in out.items() if not r["taken"]]
+    left_slower = [n for n in left if sum(out[n]["2d"]["sums"])
+                   > sum(out[n]["3d"]["sums"]) + 2 * out[n]["noise_ms"]]
+    print(f"temporal over {len(out)} sites: taken at {len(out) - len(left)}; "
+          f"an f32 kernel in the 3-D call at {len(f32_sites['3d'])} "
+          f"{f32_sites['3d']}, in the 2-D form at {len(f32_sites['2d'])} "
+          f"{f32_sites['2d']}; the 2-D form slower where taken at "
+          f"{len(slower)} {slower}; left to the 3-D call at {len(left)}, "
+          f"where the 2-D form would be slower at {len(left_slower)} "
+          f"{left_slower}", flush=True)
+    require(not ffma, f"an f32 kernel remains at R(2+1)D's 56² sites {ffma}")
+    require(not slower, f"the 2-D form is slower at {slower}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 
@@ -1260,6 +1504,12 @@ def _moved(before: dict):
     copies = {"calls": moved("loader.h2d_calls"),
               "bytes": moved("loader.h2d_bytes")}
     return counts, by_dtype, plain, moved("backbone.stem_pad_calls"), copies
+
+
+def _temporal_moved(before: dict) -> int:
+    """The temporal convolutions run as 2-D ones since ``before``."""
+    key = "backbone.temporal_2d_calls"
+    return _counters().get(key, 0) - before.get(key, 0)
 
 
 def _main_argv(exp: str, *more: str,
@@ -1310,9 +1560,14 @@ def main_path(batch: int, exp: str) -> dict:
     require(os.path.exists(ckpt), "checkpoint.pth.tar was not written")
     require(not dist.is_initialized() and engine.mesh.group is None,
             "main path: --ws 1 made a process group")
-    print(f"main path: {pads} packed stem forwards", flush=True)
+    temporal = _temporal_moved(before)
+    print(f"main path: {pads} packed stem forwards, {temporal} temporal "
+          f"convolutions as 2-D ones", flush=True)
     require(pads == 2 * len(steps), f"main path: {pads} packed stem "
             f"forwards, not 2 a step (key pass and q pass)")
+    want = 2 * TEMPORAL_2D_A_FORWARD["s3dg"] * len(steps)
+    require(temporal == want, f"main path: {temporal} temporal "
+            f"convolutions as 2-D ones, not {want}")
     return {"launches": counts, "steps_ms": steps, "peak_gib": peak,
             "checkpoint": ckpt}
 
@@ -1535,6 +1790,12 @@ def zoo_pretrain_path(arch: str, exp: str, config: str = None,
     want = 2 * len(steps) * {"slowfast": 2, "c3d": 0}.get(arch, 1)
     require(pads == want, f"{arch} pretrain: {pads} packed stem forwards, "
             f"not {want}")
+    temporal = _temporal_moved(before)
+    want = 2 * len(steps) * TEMPORAL_2D_A_FORWARD[arch]
+    print(f"{arch} pretrain: {pads} packed stem forwards, {temporal} "
+          f"temporal convolutions as 2-D ones", flush=True)
+    require(temporal == want, f"{arch} pretrain: {temporal} temporal "
+            f"convolutions as 2-D ones, not {want}")
     return {"launches": counts, "steps_ms": steps, "peak_gib": peak,
             "checkpoint": ckpt}
 
@@ -1764,6 +2025,8 @@ def visualization_path(exp: str, pretrained: str) -> dict:
             f"visualization launched K1 off f32: {by_dtype}")
     require(_moved(before)[3] == 0,
             "visualization (f32) ran the packed stem")
+    require(_temporal_moved(before) == 0,
+            "visualization (f32) ran a temporal convolution as a 2-D one")
     require(not any(plain.values()),
             f"plain versions ran on CUDA tensors: {plain}")
     return {"launches": counts, "wall_s": wall, "peak_gib": peak}
@@ -2704,6 +2967,7 @@ def main(argv=None) -> int:
           f"at {flags['tiled_sites']}, slower than 1.05 times the generic "
           f"instance at {flags['tile_over_1.05_generic']}", flush=True)
     time_stems(dev)                                               # phase 15
+    time_temporal(dev)                                            # phase 16
 
     with tempfile.TemporaryDirectory() as exp:
         trained = main_path(MAIN_BATCH, os.path.join(exp, "train"))  # 4

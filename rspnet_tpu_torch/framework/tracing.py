@@ -33,7 +33,10 @@
   and channel-padded RGB stem; 2 a pretrain step in bf16 on a card),
   ``backbone.factored_conv_calls`` (``models/r2plus1d.py``: forwards of
   ``SpatioTemporalConv``, 12 a forward of R(2+1)D-10 and so 24 a
-  pretrain step); the hand kernels' launches, counted after each
+  pretrain step), ``backbone.temporal_2d_calls`` (``models/common.py``:
+  (kt, 1, 1) convolutions run as 2-D ones on the [N, C, T, H*W] view; in
+  bf16 on a card 10 a pretrain step of R(2+1)D-10, 22 of S3D-G, 0 in
+  f32); the hand kernels' launches, counted after each
   successful launch: ``kernels.max_pool3d_fwd.<dtype>`` (K1, one launch
   a call), ``kernels.max_pool3d_bwd.<dtype>`` (K2, a call of two
   launches: route, then gather), ``<dtype>`` ``float32`` or ``bfloat16``

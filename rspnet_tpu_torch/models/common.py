@@ -269,6 +269,44 @@ class SpaceToDepthConv3d(torch.autograd.Function):
                 if need_w else None, None, None)
 
 
+def temporal_as_2d(conv: nn.Conv3d, x: torch.Tensor,
+                   dtype: torch.dtype) -> bool:
+    """Whether ``conv3d`` runs ``conv`` on ``x`` as ``temporal_conv2d``: a
+    (kt, 1, 1) kernel with kt > 1 and at most 128 output channels, a
+    spatial stride of 1, no spatial padding and no dilation, in bf16 or
+    fp16, on a CUDA input in channels-last memory (where the [N, C, T,
+    H*W] view is free).
+
+    The output width bounds it because cuDNN's 3-D heuristics do: of the
+    41 distinct sites of R(2+1)D, S3D-G and SlowFast (chip_smoke.py's
+    temporal phase), every one that the 3-D call runs as an f32 FFMA
+    kernel has at most 128 outputs, and the 2-D form is faster or equal
+    at those. The wider ones already run on tensor cores as 3-D calls;
+    there the 2-D form gains nothing in sum, and its weight gradient can
+    take a smaller tile (S3D-G's 208 to 256 wide sites at 14²)."""
+    kt, kh, kw = conv.kernel_size
+    return (kt > 1 and (kh, kw) == (1, 1) and conv.out_channels <= 128
+            and tuple(conv.stride[1:]) == (1, 1)
+            and tuple(conv.padding[1:]) == (0, 0)
+            and tuple(conv.dilation) == (1, 1, 1)
+            and dtype in (torch.bfloat16, torch.float16) and x.is_cuda
+            and x.is_contiguous(memory_format=torch.channels_last_3d))
+
+
+def temporal_conv2d(x: torch.Tensor, weight: torch.Tensor, stride,
+                    padding, groups: int = 1) -> torch.Tensor:
+    """``F.conv3d(x, weight, None, stride, padding, groups=groups)`` for a
+    [Co, Ci, kt, 1, 1] ``weight``, a spatial stride of 1 and no spatial
+    padding, as ``F.conv2d`` with a (kt, 1) kernel on the [N, C, T, H*W]
+    view of ``x``: the [N, Co, T', H, W] view of its output, channels-last
+    where ``x`` is. Autograd differentiates through the views and the 2-D
+    convolution."""
+    h, w = x.shape[3:]
+    y = F.conv2d(x.flatten(3), weight.flatten(3), None, (stride[0], 1),
+                 (padding[0], 0), groups=groups)
+    return y.unflatten(3, (h, w))
+
+
 def conv3d(conv: nn.Conv3d, x: torch.Tensor,
            dtype: Optional[torch.dtype]) -> torch.Tensor:
     """``conv`` as flax's ``nn.Conv(dtype=...)`` computes it: input, weight
@@ -276,11 +314,30 @@ def conv3d(conv: nn.Conv3d, x: torch.Tensor,
     to the rounded convolution. The output keeps a channels-last input's
     memory format (cuDNN keeps it; the CPU's one-thread 1^3 convolution
     returns NCDHW, which would put a copy before the next pool). The RGB
-    stems run as ``SpaceToDepthConv3d`` where ``packs_stem`` says so."""
+    stems run as ``SpaceToDepthConv3d`` where ``packs_stem`` says so.
+
+    The temporal (kt, 1, 1) convolutions run as ``temporal_conv2d`` where
+    ``temporal_as_2d`` says so, and count ``backbone.temporal_2d_calls``.
+    As 3-D calls, cuDNN's heuristics ran R(2+1)D's three at 16 x 56² (the
+    stem's 83 -> 64, conv2's two 144 -> 64) as an f32 FFMA kernel on NCHW
+    copies of their inputs: 37.4 ms of a ~147 ms pretrain step. Bytes bound
+    them: 686 GFLOP and about 5.4 GB of bf16 inputs and outputs a step,
+    127 FLOP/B, so about 1.6 ms at 3.35 TB/s (PERF.md §5). The 2-D form is
+    exact: in channels-last memory, [N, C, T, H, W] has the strides
+    (T*H*W*C, 1, H*W*C, W*C, C), so H and W merge into one axis of stride C
+    and [N, C, T, H*W] is the same bytes in channels-last 2-D memory; a
+    kernel of one tap in H and W with spatial stride 1 and no spatial
+    padding reads each (h, w) column on its own, so the (kt, 1) kernel on
+    (T, H*W) sums the same products, in f32, rounded once to bf16. cuDNN
+    runs the 2-D form on tensor cores."""
     dt = dtype or x.dtype
     if packs_stem(conv, x, dt):
         y = SpaceToDepthConv3d.apply(x, conv.weight.to(dt), conv.stride,
                                      conv.padding)
+    elif temporal_as_2d(conv, x, dt):
+        tracing.add("backbone.temporal_2d_calls")
+        y = temporal_conv2d(x.to(dt), conv.weight.to(dt), conv.stride,
+                            conv.padding, conv.groups)
     else:
         y = F.conv3d(x.to(dt), conv.weight.to(dt), None, conv.stride,
                      conv.padding, groups=conv.groups)
