@@ -21,8 +21,11 @@
   own on the step's stream, and leaves the phase chain as it is: the
   phases' device times still tile the step. ``rsp.backbone.spatial`` and
   ``rsp.backbone.temporal`` (``models/r2plus1d.py``: the two halves of a
-  factored convolution, 12 of each a forward of R(2+1)D-10) are such
-  spans.
+  factored convolution, 12 of each a forward of R(2+1)D-10),
+  ``rsp.backbone.fast`` (``models/slowfast.py``: SlowFast's whole fast
+  pathway, stem and four stages, one a forward) and
+  ``rsp.backbone.nonlocal`` (``models/slowfast.py:NonLocal``: one
+  non-local block, 5 a forward of SlowFast-NLN R50) are such spans.
 - ``Stopwatch(name)``: a span that always times its body (``ms``), on or
   off, so that a caller's own timing and its span come from the same two
   clock reads (the engine's ``step_times`` and ``rsp.engine.step``).
@@ -33,6 +36,8 @@
   and channel-padded RGB stem; 2 a pretrain step in bf16 on a card),
   ``backbone.factored_conv_calls`` (``models/r2plus1d.py``: forwards of
   ``SpatioTemporalConv``, 12 a forward of R(2+1)D-10 and so 24 a
+  pretrain step), ``backbone.nonlocal_calls`` (``models/slowfast.py``:
+  forwards of ``NonLocal``, 5 a forward of SlowFast-NLN R50 and so 10 a
   pretrain step), ``backbone.temporal_2d_calls`` (``models/common.py``:
   (kt, 1, 1) convolutions run as 2-D ones on the [N, C, T, H*W] view; in
   bf16 on a card 10 a pretrain step of R(2+1)D-10, 22 of S3D-G, 0 in

@@ -37,6 +37,7 @@ import torch
 from torch import nn
 
 from ..config import yaml_subset
+from ..framework import tracing
 from .common import (ConvNorm, conv3d, dense, global_avg_pool, make_conv,
                      make_norm, max_pool3d, mean_dim, softmax_last)
 
@@ -207,7 +208,11 @@ class NonLocal(nn.Module):
     points those of the JAX block in bf16: each 1^3 conv (bias added to
     the rounded product), both attention products, the scale and the
     three of the softmax (``softmax_last``), or the division by the number
-    of keys."""
+    of keys.
+
+    Each forward counts ``backbone.nonlocal_calls``; while the tracer is
+    on, the whole block is the device span ``rsp.backbone.nonlocal``
+    (framework/tracing.py)."""
 
     def __init__(self, channels: int, inner: int,
                  instantiation: str = "dot_product", bn_splits: int = 1,
@@ -222,6 +227,11 @@ class NonLocal(nn.Module):
         nn.init.zeros_(self.bn.weight)      # the block starts as identity
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        tracing.add("backbone.nonlocal_calls")
+        with tracing.device_span("rsp.backbone.nonlocal"):
+            return self._attend(x)
+
+    def _attend(self, x: torch.Tensor) -> torch.Tensor:
         B, _, T, H, W = x.shape
         dt, inner = self.dtype, self.inner
         theta = conv3d(self.theta, x, dt)
@@ -393,14 +403,17 @@ class SlowFast(nn.Module):
                         if with_classifier else None)
 
     def _pathways(self, x: torch.Tensor):
-        """NCDHW clip -> (slow map, fast map or None)."""
+        """NCDHW clip -> (slow map, fast map or None). While the tracer is
+        on, the fast pathway (stem and four stages, not the lateral
+        convolutions) is the device span ``rsp.backbone.fast``."""
         if not self.spec.two_pathway:
             return self.slow.stage_io(x)[0], None
         t = x.shape[2]
         idx = np.linspace(0, t - 1, t // self.spec.alpha).astype(np.int64)
         slow_in = x[:, :, torch.from_numpy(idx).to(x.device)].contiguous(
             memory_format=torch.channels_last_3d)
-        fast_out, fast_stem, fast_feats = self.fast.stage_io(x)
+        with tracing.device_span("rsp.backbone.fast"):
+            fast_out, fast_stem, fast_feats = self.fast.stage_io(x)
         fuse = [getattr(self, name)(v) for name, v in
                 zip(self.fuses, [fast_stem] + fast_feats[:3])]
         return self.slow.stage_io(slow_in, fuse)[0], fast_out
